@@ -3,18 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's Horn-Schunck pyramidal main path on the card, in phases:
+Drives the port's Horn-Schunck pyramidal main path and its Liu-Shen path on
+the card, in phases:
 
   1. device  — requires CUDA (no CPU fallback); prints the card's name and
                power limit, torch, CUDA and nvcc versions;
   2. build   — builds every kernel from csrc/ with nvcc;
   3. parity  — each kernel against its plain PyTorch version on the same
                CUDA tensors (HS Jacobi at 512^2, 333x517 and 2048^2; the pair
-               warp at 512^2 and 333x517 on calibrated and wild flows);
-  4. main    — the five HS configurations and the README's wrapper call on a
-               512^2 synthetic pair, launch counters reset just before; flows
-               held against the port's plain path on the CPU (AEE <= 5e-6) and
-               the 96^2 golden flows (AEE < 1e-3);
+               warp at 512^2 and 333x517 on calibrated and wild flows; the
+               Liu-Shen solve at 512^2, 333x517 and 2048^2, for a fixed count
+               and for an early stop);
+  4. main    — the five HS configurations, the README's wrapper call and the
+               four Liu-Shen configurations on a 512^2 synthetic pair, launch
+               counters reset just before; flows held against the port's
+               plain path on the CPU (AEE <= 5e-6) and the 96^2 golden flows
+               of HS and of HS + Liu-Shen (AEE < 1e-3);
   5. times   — CUDA-event medians, kernel path against plain PyTorch on the
                card, per configuration and per kernel at 512^2 and 2048^2.
 
@@ -41,6 +45,7 @@ PKG = os.path.join(ROOT, "opticalflow_ri_tpu_torch")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "synthetic96_flows.npz")
 
 HS_BAR = 1e-5          # absolute, the bar of tests/test_pallas_kernels.py
+LS_BAR = 1e-5          # absolute on u, v; relative on err
 WARP_BAR_REL = 1e-5    # relative to the image's range
 AEE_BAR = 5e-6         # card against the CPU plain path, whole pipeline
 GOLDEN_BAR = 1e-3      # tests/test_golden.py
@@ -78,10 +83,13 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     from opticalflow_ri_tpu_torch import (
         GenericPyramidalOpticalFlowWrapper, HSOpticalFlowAlgoAdapter,
-        generic_pyramidal_optical_flow,
+        LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow,
     )
     from opticalflow_ri_tpu_torch.configs import run_config
-    from opticalflow_ri_tpu_torch.ops.cuda import build, hs_iter, warp_tent
+    from opticalflow_ri_tpu_torch.models.liu_shen import (
+        liu_shen_iteration, liu_shen_precompute, liu_shen_solve,
+    )
+    from opticalflow_ri_tpu_torch.ops.cuda import build, hs_iter, liu_shen_iter, warp_tent
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -114,7 +122,7 @@ def main() -> None:
     def rand(shape, lo, hi):
         return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
 
-    err = {"hs_jacobi": 0.0, "warp_pair": 0.0}
+    err = {"hs_jacobi": 0.0, "warp_pair": 0.0, "liu_shen": 0.0}
     for shape in [(512, 512), (333, 517), (2048, 2048)]:
         fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
         u0, v0 = rand(shape, -2, 2), rand(shape, -2, 2)
@@ -143,6 +151,50 @@ def main() -> None:
                 raise AssertionError(f"warp_pair disagrees with its plain version at {shape}")
             err["warp_pair"] = max(err["warp_pair"], d)
 
+    def ls_fields(shape, h=10.0):
+        a, b = rand(shape, 1, 255), rand(shape, 1, 255)
+        return liu_shen_precompute(a / a.max(), b / b.max(), h)
+
+    def stop_tol(fields, u0, v0, h=10.0, max_iter=60):
+        """A tol that stops the plain solve after k < max_iter iterations, the
+        errors of iterations k-1 and k each at least 1% away from it."""
+        errs, u, v = [], u0, v0
+        for _ in range(max_iter):
+            un, vn = liu_shen_iteration(u, v, fields, h)
+            errs.append(float((torch.linalg.norm(un - u) + torch.linalg.norm(vn - v))
+                              / float(u.numel())))
+            u, v = un, vn
+        found = []
+        for k in range(2, max_iter):
+            tol = float(np.sqrt(errs[k - 2] * errs[k - 1]))
+            if errs[k - 1] < 0.99 * tol and min(errs[:k - 1]) > 1.01 * tol:
+                found.append((abs(k - max_iter // 2), k, tol))
+        if not found:
+            raise AssertionError(f"no early-stop tolerance found in {errs}")
+        return min(found)[1:]
+
+    for shape in [(512, 512), (333, 517), (2048, 2048)]:
+        fields = ls_fields(shape)
+        u0, v0 = rand(shape, -0.5, 0.5), rand(shape, -0.5, 0.5)
+        k_want, stop = stop_tol(fields, u0, v0)
+        for label, max_iter, tol in (("fixed", 60, 0.0), ("early-stop", 60, stop)):
+            got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, max_iter, tol)
+            want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, max_iter, tol)
+            torch.cuda.synchronize()
+            d = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+            same = all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))
+            kg, kw = int(got[3]), int(want[3])
+            eg, ew = float(got[2]), float(want[2])
+            e_rel = abs(eg - ew) / ew
+            print(f"liu_shen {shape} {label} max_iter={max_iter} tol={tol!r}: "
+                  f"max|d|={d!r} (bar {LS_BAR}) bitwise={same} k={kg} plain k={kw} "
+                  f"err={eg!r} plain err={ew!r} (rel {e_rel!r}, bar {LS_BAR})")
+            if label == "early-stop" and kw != k_want:
+                raise AssertionError(f"liu_shen plain stopped at {kw}, expected {k_want}")
+            if not (kg == kw and d <= LS_BAR and e_rel <= LS_BAR):
+                raise AssertionError(f"liu_shen disagrees with its plain version at {shape}")
+            err["liu_shen"] = max(err["liu_shen"], d)
+
     # ---------------------------------------------------------------- 4
     phase("main")
     im1, im2, _, _ = particle_image_pair(shape=(512, 512), seed=0)
@@ -157,34 +209,46 @@ def main() -> None:
             for name in ("HS_Fs0_0", "HS_Fs3_4", "PyHSchunck_Fs3_4", "HS_Fs3_4_PyrLvls2",
                          "PyHSchunck_Fs3_4_PyrLvls2")}
     runs["Wrapper_HS_21_600_Fs3_4"] = wrapper
+    for name in ("LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
+                 "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"):
+        runs[name] = lambda a, b, n=name: run_config(n, a, b)
 
-    hs_iter.hs_iterate.launches = 0
-    warp_tent.warp_pair.launches = 0
+    wrappers = {"hs_jacobi": hs_iter.hs_iterate, "warp_pair": warp_tent.warp_pair,
+                "liu_shen": liu_shen_iter.liu_shen_iterate}
+
+    def expected(name):
+        """The kernels a configuration's path must launch."""
+        want = set()
+        if not name.startswith("LiuSE_") or "HSchunck" in name:
+            want.add("hs_jacobi")
+        if name.startswith("LiuSE_"):
+            want.add("liu_shen")
+        if name.endswith("PyrLvls2"):
+            want.add("warp_pair")
+        return want
+
+    for fn in wrappers.values():
+        fn.launches = 0
     flows, counts = {}, {}
     for name, fn in runs.items():
-        before = (hs_iter.hs_iterate.launches, warp_tent.warp_pair.launches)
+        before = {k: w.launches for k, w in wrappers.items()}
         flows[name] = fn(g1, g2)
-        counts[name] = (hs_iter.hs_iterate.launches - before[0],
-                        warp_tent.warp_pair.launches - before[1])
+        counts[name] = {k: w.launches - before[k] for k, w in wrappers.items()}
     torch.cuda.synchronize()
-    launches = {"hs_jacobi": hs_iter.hs_iterate.launches,
-                "warp_pair": warp_tent.warp_pair.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     print(f"main-path launches: {launches}")
 
     for name, (u, v) in flows.items():
-        n_hs, n_warp = counts[name]
         if u.device != dev or u.shape != (512, 512) or u.dtype != torch.float32:
             raise AssertionError(f"{name}: flow {u.dtype} {tuple(u.shape)} on {u.device}")
         if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())):
             raise AssertionError(f"{name}: non-finite flow")
-        if n_hs < 1:
-            raise AssertionError(f"{name}: the HS kernel was not launched")
-        if name.endswith("PyrLvls2") and n_warp < 1:
-            raise AssertionError(f"{name}: the warp kernel was not launched")
+        for kern in expected(name):
+            if counts[name][kern] < 1:
+                raise AssertionError(f"{name}: the {kern} kernel was not launched")
         ref = runs[name](c1, c2)
         e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
-        print(f"{name}: hs launches {n_hs}, warp launches {n_warp}, "
-              f"AEE vs CPU plain path {e!r} (bar {AEE_BAR})")
+        print(f"{name}: launches {counts[name]}, AEE vs CPU plain path {e!r} (bar {AEE_BAR})")
         if not e <= AEE_BAR:
             raise AssertionError(f"{name}: card and CPU disagree")
 
@@ -196,6 +260,13 @@ def main() -> None:
     print(f"golden 96x96 2-level HS on {u.device}: AEE {e!r} (bar {GOLDEN_BAR})")
     if not e < GOLDEN_BAR:
         raise AssertionError("golden flows disagree")
+    u, v = generic_pyramidal_optical_flow(
+        s1, s2, 3.4, HSOpticalFlowAlgoAdapter([21.0, 45.0], 60), 2, 1, FILTER_OPT=0.48,
+        optionalOFlowAlgoAdapter=LiuShenOpticalFlowAlgoAdapter(5), device=dev)
+    e = aee(to_np(u), to_np(v), golden["hs_ls_u"], golden["hs_ls_v"])
+    print(f"golden 96x96 2-level HS + Liu-Shen(5) on {u.device}: AEE {e!r} (bar {GOLDEN_BAR})")
+    if not e < GOLDEN_BAR:
+        raise AssertionError("golden HS + Liu-Shen flows disagree")
 
     # ---------------------------------------------------------------- 5
     phase("times")
@@ -212,12 +283,14 @@ def main() -> None:
     @contextlib.contextmanager
     def plain_kernels():
         """Route the main path through the plain versions, for the A/B only."""
-        saved = hs_iter.hs_iterate, warp_tent.warp_pair
-        hs_iter.hs_iterate, warp_tent.warp_pair = hs_iter.hs_iterate_plain, warp_tent.warp_pair_plain
+        saved = hs_iter.hs_iterate, warp_tent.warp_pair, liu_shen_iter.liu_shen_iterate
+        hs_iter.hs_iterate = hs_iter.hs_iterate_plain
+        warp_tent.warp_pair = warp_tent.warp_pair_plain
+        liu_shen_iter.liu_shen_iterate = liu_shen_iter.liu_shen_iterate_plain
         try:
             yield
         finally:
-            hs_iter.hs_iterate, warp_tent.warp_pair = saved
+            hs_iter.hs_iterate, warp_tent.warp_pair, liu_shen_iter.liu_shen_iterate = saved
 
     def ab(kernel_fn, plain_fn, reps=REPS):
         """Medians over ``reps`` turns, the order alternating each turn."""
@@ -234,7 +307,7 @@ def main() -> None:
                 k.append(run_kernel()); p.append(run_plain())
         return statistics.median(k), statistics.median(p)
 
-    saved_counts = hs_iter.hs_iterate.launches, warp_tent.warp_pair.launches
+    saved_counts = dict(launches)
     config_times = {}
     for name, fn in runs.items():
         k, p = ab(lambda: fn(g1, g2), lambda: fn(g1, g2))
@@ -257,7 +330,22 @@ def main() -> None:
         kernel_times[("warp_pair", shape)] = (k, p)
         print(json.dumps({"kernel": "warp_pair", "shape": list(shape), "flow": "|d|<=4",
                           "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
-    hs_iter.hs_iterate.launches, warp_tent.warp_pair.launches = saved_counts
+        # the solve bench.py:328-338 times (h = 10, 60 iterations, tol = 0):
+        # the whole solve, then the kernel alone on its precomputed fields
+        a, b = rand(shape, 1, 255), rand(shape, 1, 255)
+        k, p = ab(lambda: liu_shen_solve(a, b, 10.0, z, z, 60, 0.0),
+                  lambda: liu_shen_solve(a, b, 10.0, z, z, 60, 0.0))
+        print(json.dumps({"solve": "liu_shen_solve", "shape": list(shape), "h": 10.0,
+                          "max_iter": 60, "tol": 0.0, "kernel_ms": k, "plain_ms": p,
+                          "gpu": gpu}))
+        fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
+        k, p = ab(lambda: liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, 0.0),
+                  lambda: liu_shen_iter.liu_shen_iterate_plain(10.0, fields, z, z, 60, 0.0))
+        kernel_times[("liu_shen", shape)] = (k, p)
+        print(json.dumps({"kernel": "liu_shen", "shape": list(shape), "h": 10.0, "max_iter": 60,
+                          "tol": 0.0, "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+    for name, w in wrappers.items():
+        w.launches = saved_counts[name]
 
     # ---------------------------------------------------------------- result
     kernels = [
@@ -274,6 +362,13 @@ def main() -> None:
          "launches": launches["warp_pair"], "max_abs_err": err["warp_pair"],
          "ms": kernel_times[("warp_pair", (512, 512))][0],
          "plain_ms": kernel_times[("warp_pair", (512, 512))][1]},
+        {"name": "liu_shen", "route": "cuda",
+         "source": "opticalflow_ri_tpu_torch/csrc/liu_shen.cu",
+         "replaces": "opticalflow_ri_tpu/ops/pallas/liu_shen_iter.py:108",
+         "also_replaces": ["opticalflow_ri_tpu/ops/pallas/ls_tiled.py:245"],
+         "launches": launches["liu_shen"], "max_abs_err": err["liu_shen"],
+         "ms": kernel_times[("liu_shen", (512, 512))][0],
+         "plain_ms": kernel_times[("liu_shen", (512, 512))][1]},
     ]
     for kern in kernels:
         if kern["launches"] < 1:

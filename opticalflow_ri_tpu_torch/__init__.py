@@ -2,7 +2,7 @@
 
 The JAX package ``opticalflow_ri_tpu`` is the reference; this package mirrors
 its module layout (``pyramid``, ``configs``, ``models.horn_schunck``,
-``ops.*``) so each function has a counterpart of the same name.  Plain tensor
+``models.liu_shen``, ``ops.*``) so each function has a counterpart of the same name.  Plain tensor
 code is PyTorch; every Pallas TPU kernel on a ported path is a hand-written
 CUDA kernel for Hopper under ``csrc/``, built with ``nvcc`` at first use and
 bound with ``ctypes`` (``ops/cuda/build.py``).  A kernel wrapper launches its
@@ -10,8 +10,10 @@ kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors.
 
 Ported so far: the Horn-Schunck pyramidal main path (calibrated Gaussian
 prefilter, HS derivative stencils and Jacobi solve, PIL-bicubic downsizing,
-spline flow upsampling, symmetric bilinear warp).  This package never imports
-jax.
+spline flow upsampling, symmetric bilinear warp), and the Liu-Shen refiner
+(precompute, fixed-point solve, adapter, the ``biLinear=False`` warp) with
+the four LiuSE configurations that need no other solver.  This package never
+imports jax.
 
 Images and flows are ``(H, W)`` float32 tensors; adapters follow the
 reference protocol ``compute(im1, im2, U, V) -> (U, V, err)``.
@@ -30,6 +32,7 @@ from opticalflow_ri_tpu_torch.pyramid import (  # noqa: E402
     GenericPyramidalOpticalFlowWrapper,
 )
 from opticalflow_ri_tpu_torch.models.horn_schunck import HSOpticalFlowAlgoAdapter  # noqa: E402
+from opticalflow_ri_tpu_torch.models.liu_shen import LiuShenOpticalFlowAlgoAdapter  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -37,4 +40,5 @@ __all__ = [
     "generic_pyramidal_optical_flow",
     "GenericPyramidalOpticalFlowWrapper",
     "HSOpticalFlowAlgoAdapter",
+    "LiuShenOpticalFlowAlgoAdapter",
 ]

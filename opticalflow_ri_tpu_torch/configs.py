@@ -1,9 +1,11 @@
-"""Calibrated configuration registry (port of ``configs.py``, HS entries).
+"""Calibrated configuration registry (port of ``configs.py``, HS and Liu-Shen
+entries).
 
 The Horn-Schunck h-parameter table and ``hs_alphas`` are copies of the JAX
-package's; the five HS configurations are registered with the same fields.
-The other registered names of the JAX package raise ``KeyError`` naming the
-ROADMAP slice that brings them.
+package's; the five HS configurations and the four Liu-Shen ones that need
+no other solver are registered with the same fields.  The other registered
+names of the JAX package raise ``KeyError`` naming the ROADMAP slice that
+brings them.
 
 Use ``run_config(name, im1, im2)`` or ``build_config(name)`` for the pieces.
 """
@@ -14,6 +16,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from opticalflow_ri_tpu_torch.models.horn_schunck import HSOpticalFlowAlgoAdapter
+from opticalflow_ri_tpu_torch.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
 from opticalflow_ri_tpu_torch.pyramid import generic_pyramidal_optical_flow
 
 # Horn-Schunck h-parameter calibration table: (bits, ni) -> (h at level 1,
@@ -85,6 +88,10 @@ def _register(cfg: FlowConfig):
 # --- example scripts -------------------------------------------------------
 _register(FlowConfig("PyHSchunck_Fs3_4", _hs(1), filter_sigma=3.4, pyr_levels=1))
 _register(FlowConfig("PyHSchunck_Fs3_4_PyrLvls2", _hs(2), filter_sigma=3.4, pyr_levels=2))
+_register(FlowConfig(
+    "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", _hs(2), filter_sigma=3.4, pyr_levels=2,
+    filter_opt=0.48, optional=lambda: LiuShenOpticalFlowAlgoAdapter(5),
+))
 
 # --- benchmark harness configs ---------------------------------------------
 _register(FlowConfig(
@@ -97,27 +104,38 @@ _register(FlowConfig(
     "HS_Fs3_4_PyrLvls2", lambda: HSOpticalFlowAlgoAdapter([1.0, 1.0], 100),
     filter_sigma=3.4, pyr_levels=2,
 ))
+_register(FlowConfig(
+    "LiuSE_HS_Fs3_4_PyrLvls2", lambda: LiuShenOpticalFlowAlgoAdapter(0.1),
+    filter_sigma=3.4, pyr_levels=2,
+))
+# Benchmark-harness composition quirk: with use_liu_shen the LiuShen(0.1)
+# adapter *replaces* the main adapter (the LK/FB adapter is constructed but
+# never used), keeping that config's filter_sigma / pyr_levels
+# (JAX configs.py:148-151).
+_register(FlowConfig(
+    "LiuSE_LK_Fs2_0_PyrLvls2", lambda: LiuShenOpticalFlowAlgoAdapter(0.1),
+    filter_sigma=2.0, pyr_levels=2,
+))
+_register(FlowConfig(
+    "LiuSE_FB_Fs0_0_PyrLvls2", lambda: LiuShenOpticalFlowAlgoAdapter(0.1),
+    filter_sigma=0.0, pyr_levels=2,
+))
 
-_LIU_SHEN = "the Liu-Shen slice (ROADMAP.md Queue 1, item 4)"
 _DENSE_LK = "the dense Lucas-Kanade slice (ROADMAP.md Queue 1, item 5)"
 _FARNEBACK = "the Farneback slice (ROADMAP.md Queue 1, item 6)"
 
 # JAX-package configurations not ported yet, with the slice that brings each
 UNPORTED = {
-    "LiuSE_PyHSchunck_Fs3_4_PyrLvls2": _LIU_SHEN,
-    "LiuSE_HS_Fs3_4_PyrLvls2": _LIU_SHEN,
-    "LiuSE_LK_Fs2_0_PyrLvls2": _LIU_SHEN,
-    "LiuSE_FB_Fs0_0_PyrLvls2": _LIU_SHEN,
     "denseLK_Fs2_0": _DENSE_LK,
     "denseLK_Fs2_0_PyrLvls2": _DENSE_LK,
     "LK_Fs2_0": _DENSE_LK,
     "LK_Fs2_0_PyrLvls2": _DENSE_LK,
-    "LiuSE_denseLK_Fs2_0_PyrLvls2": f"{_DENSE_LK} and {_LIU_SHEN}",
+    "LiuSE_denseLK_Fs2_0_PyrLvls2": _DENSE_LK,
     "Farneback_Fs0_0": _FARNEBACK,
     "Farneback_Fs0_0_PyrLvls2": _FARNEBACK,
     "FB_Fs0_0": _FARNEBACK,
     "FB_Fs0_0_PyrLvls2": _FARNEBACK,
-    "LiuSE_Farneback_Fs0_0_PyrLvls2": f"{_FARNEBACK} and {_LIU_SHEN}",
+    "LiuSE_Farneback_Fs0_0_PyrLvls2": _FARNEBACK,
 }
 
 

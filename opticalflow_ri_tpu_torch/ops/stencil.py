@@ -1,4 +1,4 @@
-"""Horn-Schunck stencils and separable 1-D correlation (port of the HS subset
+"""3x3 correlation, Horn-Schunck stencils and separable 1-D correlation (port
 of ``ops/stencil.py``).
 
 Every sum keeps the association order of the JAX package, e.g.
@@ -15,6 +15,26 @@ import torch
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 
 TWELFTH = float(np.float32(1.0 / 12.0))
+
+
+def correlate3x3(x: torch.Tensor, k: np.ndarray, mode: str) -> torch.Tensor:
+    """Correlate the trailing 2 dims of ``x`` with a static 3x3 kernel ``k``,
+    out(y,x) = sum_ij k[i,j]·in[y+i-1, x+j-1]; zero taps are skipped and the
+    others added in row-major order (``ops/stencil.py:31-48``)."""
+    k = np.asarray(k, dtype=np.float32)
+    if k.shape != (3, 3):
+        raise ValueError(f"correlate3x3 takes a 3x3 kernel, got {k.shape}")
+    xp = pad2d(x, 1, mode)
+    h, w = x.shape[-2], x.shape[-1]
+    out = None
+    for i in range(3):
+        for j in range(3):
+            wt = float(k[i, j])
+            if wt == 0.0:
+                continue
+            term = xp[..., i : i + h, j : j + w] * wt
+            out = term if out is None else out + term
+    return torch.zeros_like(x) if out is None else out
 
 
 def hs_avg3x3(x: torch.Tensor, mode: str = "mirror") -> torch.Tensor:

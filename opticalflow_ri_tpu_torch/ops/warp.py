@@ -7,7 +7,12 @@
     ``displacement_warp_tent`` is re-exported here.
   * ``bilinear_warp_rounded`` — the reference's round-to-nearest +
     signed-neighbour scheme, unclamped, for ``max_shift=None``.
-  * ``liu_shen_warp`` — not ported yet (Liu-Shen slice).
+  * ``liu_shen_warp`` — the optical-flow-equation warp of ``biLinear=False``:
+    integer scatter shift plus a first-order intensity correction from the
+    smoothed sub-pixel residual flow.  Duplicate destinations resolve as
+    numpy's fancy assignment does (last writer in row-major source order),
+    as a scatter-max of source linear indices followed by a gather.  No TPU
+    kernel lies behind it: it is plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
+from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter
 from opticalflow_ri_tpu_torch.ops.cuda.warp_tent import displacement_warp_tent
 
 __all__ = ["bilinear_warp_rounded", "displacement_warp_tent", "symmetric_warp_pair",
@@ -66,7 +72,32 @@ def symmetric_warp_pair(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
 
 
 def liu_shen_warp(im1: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Optical-flow-equation warp (``biLinear=False``); no HS config uses it."""
-    raise NotImplementedError(
-        "liu_shen_warp is not ported yet: it arrives with the Liu-Shen slice "
-        "(ROADMAP.md Queue 1, item 4)")
+    """Optical-flow-equation warp of im1 by (u, v) (``ops/warp.py:142-174``):
+    shift by floor(d + 0.5), negative indices wrapping and the high end
+    clipped, then subtract the first-order correction of the residual flow
+    smoothed by a 73-tap Gaussian (sigma 1.8)."""
+    h, w = im1.shape[-2], im1.shape[-1]
+    ys = torch.arange(h, device=im1.device)[:, None].expand(h, w)
+    xs = torch.arange(w, device=im1.device)[None, :].expand(h, w)
+
+    ui = torch.floor(u + 0.5)
+    vi = torch.floor(v + 0.5)
+    xdst = xs + ui.to(torch.int64)
+    ydst = ys + vi.to(torch.int64)
+    xdst = torch.where(xdst < 0, xdst + w, xdst).clamp(0, w - 1)
+    ydst = torch.where(ydst < 0, ydst + h, ydst).clamp(0, h - 1)
+    # last writer wins: each destination takes its largest source index
+    dst = (ydst * w + xdst).reshape(-1)
+    src = torch.arange(h * w, device=im1.device)
+    winner = torch.full((h * w,), -1, dtype=torch.int64, device=im1.device).scatter_reduce(
+        0, dst, src, "amax")
+    flat = im1.reshape(-1)
+    shifted = torch.where(winner >= 0, flat[winner.clamp_min(0)], flat).reshape(h, w)
+
+    du = gaussian_filter(u - ui, 0.6 * 3, 4.0 / 0.6 * 3)
+    dv = gaussian_filter(v - vi, 0.6 * 3, 4.0 / 0.6 * 3)
+
+    t_dx = shifted[:-1, 1:] * du[:-1, 1:] - shifted[:-1, :-1] * du[:-1, :-1]
+    t_dy = shifted[1:, :-1] * dv[1:, :-1] - shifted[:-1, :-1] * dv[:-1, :-1]
+    shifted[:-1, :-1] += -(t_dx + t_dy)  # shifted is a fresh tensor
+    return shifted

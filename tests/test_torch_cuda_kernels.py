@@ -6,7 +6,9 @@ file does not use tests/conftest.py (which imports jax); run it there with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
-Built with -fmad=false, both kernels equal their plain versions bit for bit.
+Built with -fmad=false, every kernel's flow equals its plain version's bit
+for bit; the Liu-Shen error, reduced in another order, agrees to 1e-5
+relative, and the Liu-Shen stop comes at the same iteration.
 """
 
 import numpy as np
@@ -14,7 +16,8 @@ import pytest
 import torch
 
 from opticalflow_ri_tpu_torch.configs import run_config
-from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, warp_tent
+from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
+from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter, warp_tent
 from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -66,6 +69,49 @@ def test_warp_kernel_equals_plain(dev, shape, dmax):
         assert torch.equal(g, w)
 
 
+def _ls_inputs(rng, shape, dev, h=10.0):
+    a, b = _rand(rng, shape, 1, 255, dev), _rand(rng, shape, 1, 255, dev)
+    fields = liu_shen_precompute(a / a.max(), b / b.max(), h)
+    return fields, _rand(rng, shape, -0.5, 0.5, dev), _rand(rng, shape, -0.5, 0.5, dev)
+
+
+def _ls_check(got, want):
+    """Same iteration count, the flow bit for bit, err to 1e-5 relative."""
+    assert int(got[3]) == int(want[3])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2].dim() == 0 and got[2].dtype == torch.float32
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
+@pytest.mark.parametrize("max_iter", [0, 1, 2, 7])
+def test_ls_kernel_fixed_count_equals_plain(dev, shape, max_iter):
+    fields, u0, v0 = _ls_inputs(np.random.default_rng(2), shape, dev)
+    before = liu_shen_iter.liu_shen_iterate.launches
+    got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, max_iter, 0.0)
+    want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, max_iter, 0.0)
+    torch.cuda.synchronize()
+    assert liu_shen_iter.liu_shen_iterate.launches == before + 1
+    assert int(got[3]) == max_iter
+    _ls_check(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
+def test_ls_kernel_early_stop_equals_plain(dev, shape):
+    """A tol between the errors of iterations 4 and 5, each at least 1% away:
+    both stop after 5 of at most 40 iterations."""
+    fields, u0, v0 = _ls_inputs(np.random.default_rng(3), shape, dev)
+    errs = [float(liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, n, 0.0)[2])
+            for n in (4, 5)]
+    tol = float(np.sqrt(errs[0] * errs[1]))
+    assert errs[1] < 0.99 * tol < 1.01 * tol < errs[0]
+    got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, 40, tol)
+    want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, 40, tol)
+    torch.cuda.synchronize()
+    assert int(want[3]) == 5
+    _ls_check(got, want)
+
+
 def test_wrappers_reject_bad_tensors(dev):
     z = torch.zeros((16, 16), device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -75,6 +121,8 @@ def test_wrappers_reject_bad_tensors(dev):
     with pytest.raises(ValueError, match="at least 2x2"):
         one = torch.zeros((1, 16), device=dev)
         hs_iter.hs_iterate(one, one, one, one, one, 1.0, 1)
+    with pytest.raises(ValueError, match="one .H, W. shape"):
+        liu_shen_iter.liu_shen_iterate(1.0, (z,) * 8, z, torch.zeros((16, 8), device=dev), 1, 0.0)
 
 
 @pytest.mark.parametrize("name", ["HS_Fs3_4", "HS_Fs3_4_PyrLvls2", "PyHSchunck_Fs3_4_PyrLvls2"])
@@ -85,4 +133,18 @@ def test_pipeline_on_card_matches_cpu(dev, name):
     cu, cv = run_config(name, im1, im2, device="cpu")
     assert hs_iter.hs_iterate.launches > hs_before
     assert (warp_tent.warp_pair.launches > warp_before) == name.endswith("PyrLvls2")
+    assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+
+
+@pytest.mark.parametrize("name", ["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
+                                  "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"])
+def test_liu_shen_pipeline_on_card_matches_cpu(dev, name):
+    im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
+    ls_before, warp_before = liu_shen_iter.liu_shen_iterate.launches, warp_tent.warp_pair.launches
+    hs_before = hs_iter.hs_iterate.launches
+    gu, gv = run_config(name, im1, im2, device=dev)
+    cu, cv = run_config(name, im1, im2, device="cpu")
+    assert liu_shen_iter.liu_shen_iterate.launches > ls_before
+    assert warp_tent.warp_pair.launches > warp_before
+    assert (hs_iter.hs_iterate.launches > hs_before) == ("PyHSchunck" in name)
     assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6

@@ -20,6 +20,8 @@ from opticalflow_ri_tpu_torch.utils import synthetic as tsynth
 
 HS_NAMES = ["PyHSchunck_Fs3_4", "PyHSchunck_Fs3_4_PyrLvls2", "HS_Fs0_0", "HS_Fs3_4",
             "HS_Fs3_4_PyrLvls2"]
+LS_NAMES = ["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
+            "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -78,9 +80,31 @@ def test_hs_config_fields_match(name):
         jm.alphas, jm.Niter, jm.getGenericPyramidalDefaults())
 
 
+def _adapter_params(ad):
+    """What a registered adapter carries: its class name, alphas or alpha,
+    iteration count and pyramid defaults."""
+    if ad is None:
+        return None
+    keys = ("alphas", "alpha", "Niter")
+    params = {k: getattr(ad, k) for k in keys if hasattr(ad, k)}
+    defaults = ad.getGenericPyramidalDefaults() if ad.hasGenericPyramidalDefaults() else None
+    return type(ad).__name__, params, defaults
+
+
+@pytest.mark.parametrize("name", LS_NAMES)
+def test_liu_shen_config_fields_match(name):
+    jc, tc = jcfg.CONFIGS[name], tcfg.build_config(name)
+    assert (tc.name, tc.filter_sigma, tc.pyr_levels, tc.k_levels, tc.filter_opt, tc.kwargs) == (
+        jc.name, jc.filter_sigma, jc.pyr_levels, jc.k_levels, jc.filter_opt, jc.kwargs)
+    assert _adapter_params(tc.main()) == _adapter_params(jc.main())
+    opt = (lambda c: c.optional() if c.optional is not None else None)
+    assert _adapter_params(opt(tc)) == _adapter_params(opt(jc))
+
+
 def test_registry_covers_every_jax_config():
-    assert set(tcfg.CONFIGS) == set(HS_NAMES)
+    assert set(tcfg.CONFIGS) == set(HS_NAMES) | set(LS_NAMES)
     assert set(tcfg.CONFIGS) | set(tcfg.UNPORTED) == set(jcfg.CONFIGS)
+    assert not set(tcfg.CONFIGS) & set(tcfg.UNPORTED)
     for name in tcfg.UNPORTED:
         with pytest.raises(KeyError, match="ROADMAP"):
             tcfg.run_config(name, None, None)

@@ -1,6 +1,6 @@
-"""The PyTorch port's HS pyramidal main path against the JAX package, end to
-end on the CPU (AEE <= 5e-6, the whole-pipeline bar), plus the golden
-regression of tests/test_golden.py."""
+"""The PyTorch port's HS and Liu-Shen pyramidal paths against the JAX package,
+end to end on the CPU (AEE <= 5e-6, the whole-pipeline bar), plus the golden
+regressions of tests/test_golden.py."""
 
 import os
 
@@ -11,11 +11,12 @@ import torch
 from opticalflow_ri_tpu import configs as jcfg
 from opticalflow_ri_tpu import pyramid as jpyr
 from opticalflow_ri_tpu.models import horn_schunck as jhs
+from opticalflow_ri_tpu.models import liu_shen as jls
 from opticalflow_ri_tpu.utils.synthetic import particle_image_pair
 
 from opticalflow_ri_tpu_torch import (
     GenericPyramidalOpticalFlowWrapper, HSOpticalFlowAlgoAdapter,
-    generic_pyramidal_optical_flow,
+    LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow,
 )
 from opticalflow_ri_tpu_torch import configs as tcfg
 from opticalflow_ri_tpu_torch.compile import compiled_pipeline
@@ -24,6 +25,8 @@ from conftest import aee
 AEE_BAR = 5e-6
 HS_NAMES = ["HS_Fs0_0", "HS_Fs3_4", "PyHSchunck_Fs3_4", "HS_Fs3_4_PyrLvls2",
             "PyHSchunck_Fs3_4_PyrLvls2"]
+LS_NAMES = ["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
+            "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"]
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "synthetic96_flows.npz")
 
 
@@ -35,6 +38,15 @@ def pair(request):
 
 @pytest.mark.parametrize("name", HS_NAMES)
 def test_hs_config_matches_jax(name, pair):
+    im1, im2 = pair
+    ju, jv = jcfg.run_config(name, im1, im2)
+    tu, tv = tcfg.run_config(name, im1, im2, device="cpu")
+    assert tu.dtype == torch.float32 and tu.shape == im1.shape and tu.device.type == "cpu"
+    assert aee(tu.numpy(), tv.numpy(), np.asarray(ju), np.asarray(jv)) <= AEE_BAR
+
+
+@pytest.mark.parametrize("name", LS_NAMES)
+def test_liu_shen_config_matches_jax(name, pair):
     im1, im2 = pair
     ju, jv = jcfg.run_config(name, im1, im2)
     tu, tv = tcfg.run_config(name, im1, im2, device="cpu")
@@ -71,11 +83,35 @@ def test_hs_golden(piv_pair_small):
     assert aee(u.numpy(), v.numpy(), golden["hs_u"], golden["hs_v"]) < 1e-3
 
 
-def test_compiled_pipeline_is_the_config(pair):
+def test_hs_liu_shen_golden(piv_pair_small):
+    im1, im2, _, _ = piv_pair_small
+    golden = np.load(_GOLDEN)
+    u, v = generic_pyramidal_optical_flow(
+        im1, im2, 3.4, HSOpticalFlowAlgoAdapter([21.0, 45.0], 60), 2, 1,
+        FILTER_OPT=0.48, optionalOFlowAlgoAdapter=LiuShenOpticalFlowAlgoAdapter(5),
+        device="cpu")
+    assert aee(u.numpy(), v.numpy(), golden["hs_ls_u"], golden["hs_ls_v"]) < 1e-3
+
+
+def test_liu_shen_refiner_in_the_driver_matches_jax(pair):
+    """The JAX golden call with LS(5) as the optional adapter, at 40 HS iterations."""
     im1, im2 = pair
-    fn = compiled_pipeline("HS_Fs3_4_PyrLvls2")
+    ju, jv = jpyr.generic_pyramidal_optical_flow(
+        im1, im2, 3.4, jhs.HSOpticalFlowAlgoAdapter([21.0, 45.0], 40), 2, 1,
+        FILTER_OPT=0.48, optionalOFlowAlgoAdapter=jls.LiuShenOpticalFlowAlgoAdapter(5))
+    tu, tv = generic_pyramidal_optical_flow(
+        im1, im2, 3.4, HSOpticalFlowAlgoAdapter([21.0, 45.0], 40), 2, 1,
+        FILTER_OPT=0.48, optionalOFlowAlgoAdapter=LiuShenOpticalFlowAlgoAdapter(5),
+        device="cpu")
+    assert aee(tu.numpy(), tv.numpy(), np.asarray(ju), np.asarray(jv)) <= AEE_BAR
+
+
+@pytest.mark.parametrize("name", ["HS_Fs3_4_PyrLvls2", "LiuSE_HS_Fs3_4_PyrLvls2"])
+def test_compiled_pipeline_is_the_config(name, pair):
+    im1, im2 = pair
+    fn = compiled_pipeline(name)
     a = fn(im1, im2, device="cpu")
-    b = tcfg.run_config("HS_Fs3_4_PyrLvls2", im1, im2, device="cpu")
+    b = tcfg.run_config(name, im1, im2, device="cpu")
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

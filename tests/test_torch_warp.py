@@ -2,20 +2,25 @@
 
 The plain version of the Hopper warp kernel is a 4-tap gather; it equals
 the XLA tent contraction bit for bit and the Pallas tent kernels (summed
-in another order) to 1e-5 relative."""
+in another order) to 1e-5 relative.  The optical-flow-equation warp
+(``liu_shen_warp``) is held to the bars of tests/test_liu_shen_warp.py."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
+from opticalflow_ri_tpu import pyramid as jpyr
+from opticalflow_ri_tpu.models import horn_schunck as jhs
 from opticalflow_ri_tpu.ops import resize as jresize
 from opticalflow_ri_tpu.ops import warp as jwarp
 from opticalflow_ri_tpu.ops.pallas.warp_tent import warp_pair_tent_pallas
 
+from opticalflow_ri_tpu_torch import HSOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow
 from opticalflow_ri_tpu_torch.ops import resize as tresize
 from opticalflow_ri_tpu_torch.ops import warp as twarp
 from opticalflow_ri_tpu_torch.ops.cuda import warp_tent as tk
+from conftest import aee
 
 SHAPE = (48, 136)
 
@@ -103,10 +108,55 @@ def test_tent_warp_clamp_envelope(d, inside):
     assert close == inside
 
 
-def test_liu_shen_warp_names_its_slice():
-    z = torch.zeros(SHAPE)
-    with pytest.raises(NotImplementedError, match="Liu-Shen"):
-        twarp.liu_shen_warp(z, z, z)
+def _ls_warp_both(im, u, v):
+    got = twarp.liu_shen_warp(torch.from_numpy(im), torch.from_numpy(u), torch.from_numpy(v))
+    want = jwarp.liu_shen_warp(jnp.asarray(im), jnp.asarray(u), jnp.asarray(v))
+    assert got.dtype == torch.float32 and got.shape == im.shape
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("shape", [(40, 48), (47, 61)])
+def test_liu_shen_warp_subpixel_matches_jax(shape):
+    """Sub-0.5 px flows: the integer scatter is the identity, isolating the
+    intensity correction."""
+    rng = np.random.default_rng(0)
+    im = rng.uniform(0, 255, shape).astype(np.float32)
+    u = rng.uniform(-0.4, 0.4, shape).astype(np.float32)
+    v = rng.uniform(-0.4, 0.4, shape).astype(np.float32)
+    got, want = _ls_warp_both(im, u, v)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("dmax", [2, 5])
+def test_liu_shen_warp_duplicate_destinations_match_jax(dmax):
+    """Colliding integer shifts (negative wrap, high-end clip) resolve as the
+    JAX scatter-max does: the last writer in row-major source order wins."""
+    rng = np.random.default_rng(7)
+    im = rng.uniform(0, 255, (32, 40)).astype(np.float32)
+    u = rng.integers(-dmax, dmax + 1, im.shape).astype(np.float32)
+    v = rng.integers(-dmax, dmax + 1, im.shape).astype(np.float32)
+    h, w = im.shape
+    ys, xs = np.mgrid[:h, :w]
+    dst = (np.clip(ys + v.astype(np.int64), 0, h - 1) * w
+           + np.clip(xs + u.astype(np.int64), 0, w - 1))
+    assert len(np.unique(dst)) < dst.size  # the case has collisions
+    got, want = _ls_warp_both(im, u, v)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-3)
+
+
+def test_liu_shen_warp_driver_matches_jax(piv_pair_small):
+    """biLinear=False through the driver (the optical-flow-equation warp)."""
+    im1, im2, _, _ = piv_pair_small
+    ju, jv = jpyr.generic_pyramidal_optical_flow(
+        im1, im2, 2.0, jhs.HSOpticalFlowAlgoAdapter([21.0, 45.0], 20,
+                                                    provideGenericPyramidalDefaults=False),
+        2, 1, warping=True, biLinear=False)
+    tu, tv = generic_pyramidal_optical_flow(
+        im1, im2, 2.0, HSOpticalFlowAlgoAdapter([21.0, 45.0], 20,
+                                                provideGenericPyramidalDefaults=False),
+        2, 1, warping=True, biLinear=False, device="cpu")
+    assert np.isfinite(tu.numpy()).all() and np.isfinite(tv.numpy()).all()
+    assert aee(tu.numpy(), tv.numpy(), np.asarray(ju), np.asarray(jv)) <= 5e-6
 
 
 @pytest.mark.parametrize("method", ["bicubic", "bilinear"])
