@@ -3,22 +3,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's Horn-Schunck pyramidal main path and its Liu-Shen path on
-the card, in phases:
+Drives the port's Horn-Schunck pyramidal main path, its Liu-Shen path and
+its dense Lucas-Kanade path on the card, in phases:
 
   1. device  — requires CUDA (no CPU fallback); prints the card's name and
                power limit, torch, CUDA and nvcc versions;
-  2. build   — builds every kernel from csrc/ with nvcc;
+  2. build   — builds every kernel from csrc/ with nvcc, one process per
+               source;
   3. parity  — each kernel against its plain PyTorch version on the same
                CUDA tensors (HS Jacobi at 512^2, 333x517 and 2048^2; the pair
                warp at 512^2 and 333x517 on calibrated and wild flows; the
                Liu-Shen solve at 512^2, 333x517 and 2048^2, for a fixed count
-               and for an early stop);
-  4. main    — the five HS configurations, the README's wrapper call and the
-               four Liu-Shen configurations on a 512^2 synthetic pair, launch
-               counters reset just before; flows held against the port's
-               plain path on the CPU (AEE <= 5e-6) and the 96^2 golden flows
-               of HS and of HS + Liu-Shen (AEE < 1e-3);
+               and for an early stop; the LK build and GN loop at 512^2,
+               333x517 and 2048^2, the GN loop on calibrated and wild flows;
+               the fused LK build+GN at 512^2 and 333x517);
+  4. main    — the five HS configurations, the README's wrapper call, the
+               four Liu-Shen configurations, the five dense-LK ones and the
+               fused LK solve (``lk_dense_solve(impl="fused")``) on a 512^2
+               synthetic pair, launch counters reset just before; flows held
+               against the port's plain path on the CPU (AEE <= 5e-6) and the
+               96^2 golden flows of HS, HS + Liu-Shen (AEE < 1e-3) and LK
+               (the bulk check of tests/test_golden.py);
   5. times   — CUDA-event medians, kernel path against plain PyTorch on the
                card, per configuration and per kernel at 512^2 and 2048^2.
 
@@ -47,9 +52,14 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "synthetic96_flows.npz")
 HS_BAR = 1e-5          # absolute, the bar of tests/test_pallas_kernels.py
 LS_BAR = 1e-5          # absolute on u, v; relative on err
 WARP_BAR_REL = 1e-5    # relative to the image's range
+LK_BUILD_RTOL = 1e-6   # the LK planes, relative
+LK_BAR = 1.2e-4        # absolute on the LK window origins (ROADMAP's LK bar); status equal
 AEE_BAR = 5e-6         # card against the CPU plain path, whole pipeline
 GOLDEN_BAR = 1e-3      # tests/test_golden.py
 REPS = 15
+REPS_2048 = 5          # the LK kernels' A/B at 2048^2, where one plain call takes ~0.1 s
+LK_CONFIGS = ("denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
+              "LK_Fs2_0", "LK_Fs2_0_PyrLvls2")
 
 
 def phase(name: str) -> None:
@@ -89,7 +99,12 @@ def main() -> None:
     from opticalflow_ri_tpu_torch.models.liu_shen import (
         liu_shen_iteration, liu_shen_precompute, liu_shen_solve,
     )
-    from opticalflow_ri_tpu_torch.ops.cuda import build, hs_iter, liu_shen_iter, warp_tent
+    from opticalflow_ri_tpu_torch.models.lucas_kanade import (
+        DenseLucasKanadeAdapter, lk_dense_solve, lk_kernel_inputs,
+    )
+    from opticalflow_ri_tpu_torch.ops.cuda import (
+        build, hs_iter, liu_shen_iter, lk_build, lk_iter, warp_tent,
+    )
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -122,7 +137,8 @@ def main() -> None:
     def rand(shape, lo, hi):
         return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
 
-    err = {"hs_jacobi": 0.0, "warp_pair": 0.0, "liu_shen": 0.0}
+    err = {"hs_jacobi": 0.0, "warp_pair": 0.0, "liu_shen": 0.0, "lk_build": 0.0,
+           "lk_gn": 0.0, "lk_fused": 0.0}
     for shape in [(512, 512), (333, 517), (2048, 2048)]:
         fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
         u0, v0 = rand(shape, -2, 2), rand(shape, -2, 2)
@@ -195,6 +211,58 @@ def main() -> None:
                 raise AssertionError(f"liu_shen disagrees with its plain version at {shape}")
             err["liu_shen"] = max(err["liu_shen"], d)
 
+    def lk_pair(shape):
+        """A random frame and its rolled, noisy copy, on the card."""
+        a = rng.uniform(0, 255, shape).astype(np.float32)
+        b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+        return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+
+    def lk_problem(pair, dmax=4.0):
+        """The LK kernels' inputs (half window 13, R = 5: 121 shifts) for a
+        pair and a random initial flow of |d| <= dmax."""
+        shape = tuple(pair[0].shape)
+        return lk_kernel_inputs(*pair, rand(shape, -dmax, dmax), rand(shape, -dmax, dmax))
+
+    def lk_compare(name, label, got, want):
+        d = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        status_same = torch.equal(got[2], want[2])
+        print(f"{name} {label}: max|d|={d!r} (bar {LK_BAR}) status equal={status_same} "
+              f"bitwise={same}")
+        if not (d <= LK_BAR and status_same):
+            raise AssertionError(f"{name} disagrees with its plain version ({label})")
+        err[name] = max(err[name], d)
+
+    for shape in [(512, 512), (333, 517), (2048, 2048)]:
+        pair = lk_pair(shape)
+        slab, g_pair, _, runs_y, runs_x = lk_problem(pair)
+        got = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
+        want = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
+        torch.cuda.synchronize()
+        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = all(torch.allclose(g, w, rtol=LK_BUILD_RTOL, atol=0) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"lk_build {shape} 2x121 planes: max|d|={d!r} within rtol {LK_BUILD_RTOL}={ok} "
+              f"bitwise={same}")
+        if not ok:
+            raise AssertionError(f"lk_build disagrees with its plain version at {shape}")
+        err["lk_build"] = max(err["lk_build"], d)
+        del want
+        t1, t2 = got
+        for label, dmax in (("calibrated", 4.0), ("wild", 20.0)):
+            fields = lk_problem(pair, dmax)[2]
+            got = lk_iter.lk_gn_iterate(t1, t2, *fields, 5, 5, 13)
+            want = lk_iter.lk_gn_iterate_plain(t1, t2, *fields, 5, 5, 13)
+            torch.cuda.synchronize()
+            lk_compare("lk_gn", f"{shape} n_iter=5 {label} |d|<={dmax}", got, want)
+        del t1, t2, got
+        if shape != (2048, 2048):
+            got = lk_iter.lk_fused(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x)
+            want = lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x)
+            torch.cuda.synchronize()
+            lk_compare("lk_fused", f"{shape} n_iter=5 wild |d|<=20", got, want)
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4
     phase("main")
     im1, im2, _, _ = particle_image_pair(shape=(512, 512), seed=0)
@@ -210,14 +278,29 @@ def main() -> None:
                          "PyHSchunck_Fs3_4_PyrLvls2")}
     runs["Wrapper_HS_21_600_Fs3_4"] = wrapper
     for name in ("LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
-                 "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"):
+                 "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2") + LK_CONFIGS:
         runs[name] = lambda a, b, n=name: run_config(n, a, b)
 
+    def fused_solve(a, b):
+        """The fused LK kernel's entry point: one calibrated LK solve from zero flow."""
+        z = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+        return lk_dense_solve(a, b, z, z, impl="fused")[:2]
+
+    runs["lk_dense_solve_fused"] = fused_solve
+
     wrappers = {"hs_jacobi": hs_iter.hs_iterate, "warp_pair": warp_tent.warp_pair,
-                "liu_shen": liu_shen_iter.liu_shen_iterate}
+                "liu_shen": liu_shen_iter.liu_shen_iterate,
+                "lk_build": lk_build.lk_build_planes, "lk_gn": lk_iter.lk_gn_iterate,
+                "lk_fused": lk_iter.lk_fused}
 
     def expected(name):
-        """The kernels a configuration's path must launch."""
+        """The kernels a configuration's path launches, and no others.  The
+        LK configurations run with warping=False: no warp.  LiuSE_LK_Fs2_0_*
+        runs Liu-Shen alone (the harness quirk of configs.py)."""
+        if name == "lk_dense_solve_fused":
+            return {"lk_fused"}
+        if name in LK_CONFIGS:
+            return {"lk_build", "lk_gn"} | ({"liu_shen"} if name.startswith("LiuSE_") else set())
         want = set()
         if not name.startswith("LiuSE_") or "HSchunck" in name:
             want.add("hs_jacobi")
@@ -243,9 +326,10 @@ def main() -> None:
             raise AssertionError(f"{name}: flow {u.dtype} {tuple(u.shape)} on {u.device}")
         if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())):
             raise AssertionError(f"{name}: non-finite flow")
-        for kern in expected(name):
-            if counts[name][kern] < 1:
-                raise AssertionError(f"{name}: the {kern} kernel was not launched")
+        launched = {k for k, c in counts[name].items() if c > 0}
+        if launched != expected(name):
+            raise AssertionError(f"{name}: launched {sorted(launched)}, expected "
+                                 f"{sorted(expected(name))}")
         ref = runs[name](c1, c2)
         e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
         print(f"{name}: launches {counts[name]}, AEE vs CPU plain path {e!r} (bar {AEE_BAR})")
@@ -267,6 +351,15 @@ def main() -> None:
     print(f"golden 96x96 2-level HS + Liu-Shen(5) on {u.device}: AEE {e!r} (bar {GOLDEN_BAR})")
     if not e < GOLDEN_BAR:
         raise AssertionError("golden HS + Liu-Shen flows disagree")
+    u, v = generic_pyramidal_optical_flow(
+        s1, s2, 2.0, DenseLucasKanadeAdapter(), 2, 1, FILTER_OPT=0.48, warping=False,
+        device=dev)
+    bulk = float(((np.abs(to_np(u) - golden["lk_u"]) < 1e-2)
+                  & (np.abs(to_np(v) - golden["lk_v"]) < 1e-2)).mean())
+    print(f"golden 96x96 2-level LK on {u.device}: share of pixels within 1e-2 {bulk!r} "
+          f"(bar > 0.99)")
+    if not bulk > 0.99:
+        raise AssertionError("golden LK flows disagree")
 
     # ---------------------------------------------------------------- 5
     phase("times")
@@ -283,14 +376,17 @@ def main() -> None:
     @contextlib.contextmanager
     def plain_kernels():
         """Route the main path through the plain versions, for the A/B only."""
-        saved = hs_iter.hs_iterate, warp_tent.warp_pair, liu_shen_iter.liu_shen_iterate
-        hs_iter.hs_iterate = hs_iter.hs_iterate_plain
-        warp_tent.warp_pair = warp_tent.warp_pair_plain
-        liu_shen_iter.liu_shen_iterate = liu_shen_iter.liu_shen_iterate_plain
+        swaps = [(hs_iter, "hs_iterate"), (warp_tent, "warp_pair"),
+                 (liu_shen_iter, "liu_shen_iterate"), (lk_build, "lk_build_planes"),
+                 (lk_iter, "lk_gn_iterate"), (lk_iter, "lk_fused")]
+        saved = [getattr(mod, attr) for mod, attr in swaps]
+        for mod, attr in swaps:
+            setattr(mod, attr, getattr(mod, attr + "_plain"))
         try:
             yield
         finally:
-            hs_iter.hs_iterate, warp_tent.warp_pair, liu_shen_iter.liu_shen_iterate = saved
+            for (mod, attr), fn in zip(swaps, saved):
+                setattr(mod, attr, fn)
 
     def ab(kernel_fn, plain_fn, reps=REPS):
         """Medians over ``reps`` turns, the order alternating each turn."""
@@ -344,6 +440,30 @@ def main() -> None:
         kernel_times[("liu_shen", shape)] = (k, p)
         print(json.dumps({"kernel": "liu_shen", "shape": list(shape), "h": 10.0, "max_iter": 60,
                           "tol": 0.0, "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        # the LK kernels at the calibrated config: half window 13, R = 5, 5 GN steps
+        reps = REPS if shape == (512, 512) else REPS_2048
+        slab, g_pair, fields, runs_y, runs_x = lk_problem(lk_pair(shape))
+        k, p = ab(lambda: lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x),
+                  lambda: lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x),
+                  reps)
+        kernel_times[("lk_build", shape)] = (k, p)
+        print(json.dumps({"kernel": "lk_build", "shape": list(shape), "shifts": 121,
+                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        t1, t2 = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
+        k, p = ab(lambda: lk_iter.lk_gn_iterate(t1, t2, *fields, 5, 5, 13),
+                  lambda: lk_iter.lk_gn_iterate_plain(t1, t2, *fields, 5, 5, 13), reps)
+        kernel_times[("lk_gn", shape)] = (k, p)
+        print(json.dumps({"kernel": "lk_gn", "shape": list(shape), "n_iter": 5, "flow": "|d|<=4",
+                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        del t1, t2
+        k, p = ab(lambda: lk_iter.lk_fused(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x),
+                  lambda: lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, 5, 13, runs_y,
+                                                 runs_x), reps)
+        kernel_times[("lk_fused", shape)] = (k, p)
+        print(json.dumps({"kernel": "lk_fused", "shape": list(shape), "n_iter": 5,
+                          "flow": "|d|<=4", "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        del slab, g_pair, fields
+        torch.cuda.empty_cache()
     for name, w in wrappers.items():
         w.launches = saved_counts[name]
 
@@ -369,6 +489,24 @@ def main() -> None:
          "launches": launches["liu_shen"], "max_abs_err": err["liu_shen"],
          "ms": kernel_times[("liu_shen", (512, 512))][0],
          "plain_ms": kernel_times[("liu_shen", (512, 512))][1]},
+        {"name": "lk_build", "route": "cuda",
+         "source": "opticalflow_ri_tpu_torch/csrc/lk_build.cu",
+         "replaces": "opticalflow_ri_tpu/ops/pallas/lk_build.py:173",
+         "launches": launches["lk_build"], "max_abs_err": err["lk_build"],
+         "ms": kernel_times[("lk_build", (512, 512))][0],
+         "plain_ms": kernel_times[("lk_build", (512, 512))][1]},
+        {"name": "lk_gn", "route": "cuda",
+         "source": "opticalflow_ri_tpu_torch/csrc/lk_iter.cu",
+         "replaces": "opticalflow_ri_tpu/ops/pallas/lk_iter.py:153",
+         "launches": launches["lk_gn"], "max_abs_err": err["lk_gn"],
+         "ms": kernel_times[("lk_gn", (512, 512))][0],
+         "plain_ms": kernel_times[("lk_gn", (512, 512))][1]},
+        {"name": "lk_fused", "route": "cuda",
+         "source": "opticalflow_ri_tpu_torch/csrc/lk_iter.cu",
+         "replaces": "opticalflow_ri_tpu/ops/pallas/lk_iter.py:320",
+         "launches": launches["lk_fused"], "max_abs_err": err["lk_fused"],
+         "ms": kernel_times[("lk_fused", (512, 512))][0],
+         "plain_ms": kernel_times[("lk_fused", (512, 512))][1]},
     ]
     for kern in kernels:
         if kern["launches"] < 1:

@@ -2,7 +2,8 @@
 
 The JAX package ``opticalflow_ri_tpu`` is the reference; this package mirrors
 its module layout (``pyramid``, ``configs``, ``models.horn_schunck``,
-``models.liu_shen``, ``ops.*``) so each function has a counterpart of the same name.  Plain tensor
+``models.liu_shen``, ``models.lucas_kanade``, ``ops.*``) so each function has
+a counterpart of the same name.  Plain tensor
 code is PyTorch; every Pallas TPU kernel on a ported path is a hand-written
 CUDA kernel for Hopper under ``csrc/``, built with ``nvcc`` at first use and
 bound with ``ctypes`` (``ops/cuda/build.py``).  A kernel wrapper launches its
@@ -12,7 +13,9 @@ Ported so far: the Horn-Schunck pyramidal main path (calibrated Gaussian
 prefilter, HS derivative stencils and Jacobi solve, PIL-bicubic downsizing,
 spline flow upsampling, symmetric bilinear warp), and the Liu-Shen refiner
 (precompute, fixed-point solve, adapter, the ``biLinear=False`` warp) with
-the four LiuSE configurations that need no other solver.  This package never
+the four LiuSE configurations that need no other solver, and dense
+Lucas-Kanade (window sums, solve fields, shift-plane build, Gauss-Newton
+loop, error map, adapter) with its five configurations.  This package never
 imports jax.
 
 Images and flows are ``(H, W)`` float32 tensors; adapters follow the
@@ -33,6 +36,7 @@ from opticalflow_ri_tpu_torch.pyramid import (  # noqa: E402
 )
 from opticalflow_ri_tpu_torch.models.horn_schunck import HSOpticalFlowAlgoAdapter  # noqa: E402
 from opticalflow_ri_tpu_torch.models.liu_shen import LiuShenOpticalFlowAlgoAdapter  # noqa: E402
+from opticalflow_ri_tpu_torch.models.lucas_kanade import DenseLucasKanadeAdapter  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -41,4 +45,5 @@ __all__ = [
     "GenericPyramidalOpticalFlowWrapper",
     "HSOpticalFlowAlgoAdapter",
     "LiuShenOpticalFlowAlgoAdapter",
+    "DenseLucasKanadeAdapter",
 ]

@@ -1,11 +1,11 @@
-"""Calibrated configuration registry (port of ``configs.py``, HS and Liu-Shen
-entries).
+"""Calibrated configuration registry (port of ``configs.py``: the HS,
+Liu-Shen and dense Lucas-Kanade entries).
 
 The Horn-Schunck h-parameter table and ``hs_alphas`` are copies of the JAX
-package's; the five HS configurations and the four Liu-Shen ones that need
-no other solver are registered with the same fields.  The other registered
-names of the JAX package raise ``KeyError`` naming the ROADMAP slice that
-brings them.
+package's; the five HS configurations, the five dense-LK ones and the four
+Liu-Shen ones that need no Farneback solver are registered with the same
+fields.  The Farneback names of the JAX package raise ``KeyError`` naming
+the ROADMAP slice that brings them.
 
 Use ``run_config(name, im1, im2)`` or ``build_config(name)`` for the pieces.
 """
@@ -17,6 +17,7 @@ from typing import Callable, Optional
 
 from opticalflow_ri_tpu_torch.models.horn_schunck import HSOpticalFlowAlgoAdapter
 from opticalflow_ri_tpu_torch.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
+from opticalflow_ri_tpu_torch.models.lucas_kanade import DenseLucasKanadeAdapter
 from opticalflow_ri_tpu_torch.pyramid import generic_pyramidal_optical_flow
 
 # Horn-Schunck h-parameter calibration table: (bits, ni) -> (h at level 1,
@@ -92,6 +93,19 @@ _register(FlowConfig(
     "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", _hs(2), filter_sigma=3.4, pyr_levels=2,
     filter_opt=0.48, optional=lambda: LiuShenOpticalFlowAlgoAdapter(5),
 ))
+_register(FlowConfig(
+    "denseLK_Fs2_0", lambda: DenseLucasKanadeAdapter(Niter=5, halfWindow=13),
+    filter_sigma=2.0, pyr_levels=1, filter_opt=0.48, kwargs={"warping": False},
+))
+_register(FlowConfig(
+    "denseLK_Fs2_0_PyrLvls2", lambda: DenseLucasKanadeAdapter(Niter=5, halfWindow=13),
+    filter_sigma=2.0, pyr_levels=2, filter_opt=0.48, kwargs={"warping": False},
+))
+_register(FlowConfig(
+    "LiuSE_denseLK_Fs2_0_PyrLvls2", lambda: DenseLucasKanadeAdapter(Niter=5, halfWindow=13),
+    filter_sigma=2.0, pyr_levels=2, filter_opt=0.48,
+    optional=lambda: LiuShenOpticalFlowAlgoAdapter(10), kwargs={"warping": False},
+))
 
 # --- benchmark harness configs ---------------------------------------------
 _register(FlowConfig(
@@ -108,6 +122,14 @@ _register(FlowConfig(
     "LiuSE_HS_Fs3_4_PyrLvls2", lambda: LiuShenOpticalFlowAlgoAdapter(0.1),
     filter_sigma=3.4, pyr_levels=2,
 ))
+_register(FlowConfig(
+    "LK_Fs2_0", lambda: DenseLucasKanadeAdapter(halfWindow=13, Niter=5),
+    filter_sigma=2.0,
+))
+_register(FlowConfig(
+    "LK_Fs2_0_PyrLvls2", lambda: DenseLucasKanadeAdapter(halfWindow=13, Niter=5),
+    filter_sigma=2.0, pyr_levels=2,
+))
 # Benchmark-harness composition quirk: with use_liu_shen the LiuShen(0.1)
 # adapter *replaces* the main adapter (the LK/FB adapter is constructed but
 # never used), keeping that config's filter_sigma / pyr_levels
@@ -121,16 +143,10 @@ _register(FlowConfig(
     filter_sigma=0.0, pyr_levels=2,
 ))
 
-_DENSE_LK = "the dense Lucas-Kanade slice (ROADMAP.md Queue 1, item 5)"
 _FARNEBACK = "the Farneback slice (ROADMAP.md Queue 1, item 6)"
 
 # JAX-package configurations not ported yet, with the slice that brings each
 UNPORTED = {
-    "denseLK_Fs2_0": _DENSE_LK,
-    "denseLK_Fs2_0_PyrLvls2": _DENSE_LK,
-    "LK_Fs2_0": _DENSE_LK,
-    "LK_Fs2_0_PyrLvls2": _DENSE_LK,
-    "LiuSE_denseLK_Fs2_0_PyrLvls2": _DENSE_LK,
     "Farneback_Fs0_0": _FARNEBACK,
     "Farneback_Fs0_0_PyrLvls2": _FARNEBACK,
     "FB_Fs0_0": _FARNEBACK,

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``.  No PyTorch headers are
 included, so the build takes seconds.  The library lands in
 ``build/opticalflow_ri_tpu_torch/`` beside the package, under a name keyed by
@@ -29,9 +30,10 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "opticalflow_ri_tpu_torch"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 
@@ -54,7 +56,7 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -69,21 +71,33 @@ def build() -> Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: concurrent processes never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = find_nvcc()
+    # build under a temporary directory and name, then rename: concurrent
+    # processes never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        procs = []
+        for src in sources():
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", os.path.join(work, src.stem + ".o"),
+                   str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, lib.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *(os.path.join(work, src.stem + ".o") for src in sources())]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        lib.with_suffix(".log").write_text("".join(log) + proc.stdout + proc.stderr)
         os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return lib
 
 
@@ -118,3 +132,16 @@ def check_fields(what: str, *fields: torch.Tensor) -> None:
             raise ValueError(f"{what}: fields must be contiguous")
     if shape[0] < 2 or shape[1] < 2:
         raise ValueError(f"{what}: fields must be at least 2x2, got {tuple(shape)}")
+
+
+def check_tensor(what: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """Validate one kernel argument of a fixed shape (a plane stack or a
+    padded slab): on ``device``, float32, ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{what}: all tensors must be on {device}, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what}: tensors must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensors must be contiguous")

@@ -1,0 +1,174 @@
+"""Dense-LK Gauss-Newton loop: the Hopper kernels and their plain versions.
+
+``lk_gn_iterate`` replaces the TPU kernel
+``ops/pallas/lk_iter.py:lk_gn_iterate_pallas`` and ``lk_fused`` replaces
+``ops/pallas/lk_iter.py:lk_fused_pallas``; both kernels live in
+``csrc/lk_iter.cu``.  ``lk_gn_iterate_plain`` is the GN loop in PyTorch on
+whole-image tensors, and ``lk_fused_plain`` the two-level build followed by
+it; CPU tensors take them.
+
+The blend of T1/T2 at a pixel's displacement reads the 2x2 enclosing
+integer shifts with tent weights max(0, 1 - |uc - s|) and adds them in the
+TPU kernel's separable order (``lk_iter.py:92-106``: over sy, then over sx,
+ascending, from 0), where every other tent weight is exactly 0.  The rest is
+``models/lucas_kanade.py:401-435``.
+
+All return (px, py, status): the final window origins (the pixel minus the
+half window plus the flow) and the 0/1 status, (h, w) float32.  ``act0`` is
+the non-singular-window mask as 0/1 float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from opticalflow_ri_tpu_torch.ops.cuda import build
+from opticalflow_ri_tpu_torch.ops.cuda.lk_build import (
+    check_build_inputs, lk_build_planes_plain, run_table,
+)
+
+STEP_EPS = float(np.float32(0.01))
+
+
+def clip_hi(R: int) -> float:
+    """The upper displacement clamp R - 1e-3, rounded to float32 as JAX does."""
+    return float(np.float32(int(R) - 1e-3))
+
+
+def lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
+                        n_iter: int, R: int, hw: int):
+    """``n_iter`` Gauss-Newton steps per pixel on the plane stacks."""
+    nshift = 2 * R + 1
+    h, w = ia11.shape
+    dev = ia11.device
+    jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    t1f = t1.reshape(nshift * nshift, h * w)
+    t2f = t2.reshape(nshift * nshift, h * w)
+    lo, hi = float(-R), clip_hi(R)
+
+    def at(tf, idx):
+        return torch.gather(tf, 0, idx.reshape(1, -1)).reshape(h, w)
+
+    px, py, active = px0, py0, act0
+    status = torch.ones((h, w), dtype=torch.float32, device=dev)
+    for _ in range(int(n_iter)):
+        oob = ((px < -hw) | (px >= w) | (py < -hw) | (py >= h)).to(torch.float32)
+        status = status * (1.0 - active * oob)
+        active = active * (1.0 - oob)
+
+        uc = (px + hw - jj).clamp(lo, hi)
+        vc = (py + hw - ii).clamp(lo, hi)
+        sx = torch.floor(uc)
+        sy = torch.floor(vc)
+        wx0 = (1.0 - (uc - sx).abs()).clamp_min(0.0)
+        wx1 = (1.0 - (uc - (sx + 1.0)).abs()).clamp_min(0.0)
+        wy0 = (1.0 - (vc - sy).abs()).clamp_min(0.0)
+        wy1 = (1.0 - (vc - (sy + 1.0)).abs()).clamp_min(0.0)
+        s00 = ((sy.long() + R) * nshift + (sx.long() + R))
+        corners = (s00, s00 + nshift, s00 + 1, s00 + nshift + 1)
+
+        sums = []
+        for tf in (t1f, t2f):
+            q00, q10, q01, q11 = (at(tf, c) for c in corners)
+            ty0 = wy0 * q00 + wy1 * q10
+            ty1 = wy0 * q01 + wy1 * q11
+            sums.append(wx0 * ty0 + wx1 * ty1)
+        b1 = sums[0] - c1
+        b2 = sums[1] - c2
+
+        dx = (ia12 * b2 - ia22 * b1) * 32.0
+        dy = (ia12 * b1 - ia11 * b2) * 32.0
+        px = px + dx * active
+        py = py + dy * active
+        small = ((dx.abs() < STEP_EPS) & (dy.abs() < STEP_EPS)).to(torch.float32)
+        active = active * (1.0 - small)
+    return px, py, status
+
+
+def lk_fused_plain(slab, g_pair, ia11, ia12, ia22, c1, c2, act0, px0, py0,
+                   n_iter: int, R: int, hw: int, runs_y, runs_x):
+    """The fused kernel's plain version: the two-level build, then the GN loop."""
+    t1, t2 = lk_build_planes_plain(slab, g_pair, hw, R, runs_y, runs_x, hierarchical=True)
+    return lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
+                               n_iter, R, hw)
+
+
+def _outputs(like):
+    return tuple(torch.empty(like.shape, dtype=torch.float32, device=like.device)
+                 for _ in range(3))
+
+
+def lk_gn_iterate(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
+                  n_iter: int, R: int, hw: int):
+    """Run the LK Gauss-Newton loop; returns (px, py, status).
+
+    CPU tensors run ``lk_gn_iterate_plain``; CUDA tensors launch the kernel,
+    one thread per pixel for all ``n_iter`` steps.
+    """
+    if ia11.device.type == "cpu":
+        return lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
+                                   n_iter, R, hw)
+    fields = (ia11, ia12, ia22, c1, c2, act0, px0, py0)
+    build.check_fields("lk_gn_iterate", *fields)
+    h, w = ia11.shape
+    dev = ia11.device
+    nshift = 2 * R + 1
+    build.check_tensor("lk_gn_iterate", t1, (nshift * nshift, h, w), dev)
+    build.check_tensor("lk_gn_iterate", t2, (nshift * nshift, h, w), dev)
+    px, py, status = _outputs(ia11)
+    entry = build.load_library().ofri_lk_gn
+    entry.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lk_gn_iterate.launches += 1
+    rc = entry(t1.data_ptr(), t2.data_ptr(), *(f.data_ptr() for f in fields), px.data_ptr(),
+               py.data_ptr(), status.data_ptr(), h, w, int(n_iter), int(R), int(hw),
+               clip_hi(R), dev.index or 0, stream)
+    build.check(rc, "lk_gn_iterate")
+    return px, py, status
+
+
+lk_gn_iterate.launches = 0
+
+
+def lk_fused(slab, g_pair, ia11, ia12, ia22, c1, c2, act0, px0, py0,
+             n_iter: int, R: int, hw: int, runs_y, runs_x):
+    """Build the planes (two-level order) and run the GN loop in one launch;
+    returns (px, py, status).
+
+    CPU tensors run ``lk_fused_plain``; CUDA tensors launch the kernel.  The
+    planes of an 8x16 pixel tile live in shared memory, which bounds R
+    (R = 5 needs 144 KB; R = 6, 193 KB).
+    """
+    if ia11.device.type == "cpu":
+        return lk_fused_plain(slab, g_pair, ia11, ia12, ia22, c1, c2, act0, px0, py0,
+                              n_iter, R, hw, runs_y, runs_x)
+    fields = (ia11, ia12, ia22, c1, c2, act0, px0, py0)
+    build.check_fields("lk_fused", *fields)
+    h, w = check_build_inputs("lk_fused", slab, g_pair, R)
+    if (h, w) != tuple(ia11.shape) or g_pair.device != ia11.device:
+        raise ValueError(f"lk_fused: fields {tuple(ia11.shape)} on {ia11.device} do not "
+                         f"match the slab's image {(h, w)} on {g_pair.device}")
+    dev = ia11.device
+    px, py, status = _outputs(ia11)
+    ty, tx = run_table(runs_y), run_table(runs_x)
+    entry = build.load_library().ofri_lk_fused
+    entry.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lk_fused.launches += 1
+    rc = entry(slab.data_ptr(), g_pair.data_ptr(), *(f.data_ptr() for f in fields),
+               px.data_ptr(), py.data_ptr(), status.data_ptr(), h, w, int(n_iter), int(R),
+               int(hw), clip_hi(R), ctypes.cast(ty, ctypes.c_void_p),
+               ctypes.cast(tx, ctypes.c_void_p), dev.index or 0, stream)
+    build.check(rc, "lk_fused")
+    return px, py, status
+
+
+lk_fused.launches = 0

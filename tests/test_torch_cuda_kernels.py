@@ -8,7 +8,10 @@ file does not use tests/conftest.py (which imports jax); run it there with
 
 Built with -fmad=false, every kernel's flow equals its plain version's bit
 for bit; the Liu-Shen error, reduced in another order, agrees to 1e-5
-relative, and the Liu-Shen stop comes at the same iteration.
+relative, and the Liu-Shen stop comes at the same iteration.  The dense-LK
+kernels are held to their bars (the LK build to rtol 1e-6, the GN loop and
+the fused build+GN to 1.2e-4 on the window origins with status equal); all
+three are expected to be bit-identical.
 """
 
 import numpy as np
@@ -17,7 +20,8 @@ import torch
 
 from opticalflow_ri_tpu_torch.configs import run_config
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
-from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter, warp_tent
+from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
+from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter, lk_build, lk_iter, warp_tent
 from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -147,4 +151,105 @@ def test_liu_shen_pipeline_on_card_matches_cpu(dev, name):
     assert liu_shen_iter.liu_shen_iterate.launches > ls_before
     assert warp_tent.warp_pair.launches > warp_before
     assert (hs_iter.hs_iterate.launches > hs_before) == ("PyHSchunck" in name)
+    assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+
+
+# ---------------------------------------------------------------- dense LK
+
+LK_BAR = 1.2e-4
+LK_NAMES = ["denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
+            "LK_Fs2_0", "LK_Fs2_0_PyrLvls2"]
+ASYMS = [(0, 0, 0, 0), (1, 0, 0, 1), (0, 1, 0, 1)]
+
+
+def _lk_problem(dev, shape, asym=(0, 0, 0, 0), dmax=4.0, seed=4):
+    """The kernels' inputs for a rolled, noisy random pair and a random
+    initial flow of |d| <= dmax."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 255, shape).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+    u0, v0 = (torch.tensor(rng.uniform(-dmax, dmax, shape).astype(np.float32), device=dev)
+              for _ in range(2))
+    return lk_kernel_inputs(torch.tensor(a, device=dev), torch.tensor(b, device=dev), u0, v0,
+                            asym=asym)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
+@pytest.mark.parametrize("asym", ASYMS)
+def test_lk_build_kernel_equals_plain(dev, shape, asym):
+    slab, g_pair, _, runs_y, runs_x = _lk_problem(dev, shape, asym)
+    before = lk_build.lk_build_planes.launches
+    got = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
+    want = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
+    torch.cuda.synchronize()
+    assert lk_build.lk_build_planes.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == (121, *shape)
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+
+
+def _lk_check(got, want):
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= LK_BAR
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
+@pytest.mark.parametrize("n_iter", [0, 1, 5])
+@pytest.mark.parametrize("dmax", [4.0, 20.0], ids=["calibrated", "wild"])
+def test_lk_gn_kernel_equals_plain(dev, shape, n_iter, dmax):
+    slab, g_pair, fields, runs_y, runs_x = _lk_problem(dev, shape, dmax=dmax)
+    t1, t2 = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
+    before = lk_iter.lk_gn_iterate.launches
+    got = lk_iter.lk_gn_iterate(t1, t2, *fields, n_iter, 5, 13)
+    want = lk_iter.lk_gn_iterate_plain(t1, t2, *fields, n_iter, 5, 13)
+    torch.cuda.synchronize()
+    assert lk_iter.lk_gn_iterate.launches == before + 1
+    _lk_check(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
+@pytest.mark.parametrize("n_iter", [0, 1, 5])
+@pytest.mark.parametrize("asym", ASYMS[:2])
+def test_lk_fused_kernel_equals_plain(dev, shape, n_iter, asym):
+    slab, g_pair, fields, runs_y, runs_x = _lk_problem(dev, shape, asym)
+    before = lk_iter.lk_fused.launches
+    got = lk_iter.lk_fused(slab, g_pair, *fields, n_iter, 5, 13, runs_y, runs_x)
+    want = lk_iter.lk_fused_plain(slab, g_pair, *fields, n_iter, 5, 13, runs_y, runs_x)
+    torch.cuda.synchronize()
+    assert lk_iter.lk_fused.launches == before + 1
+    _lk_check(got, want)
+
+
+def test_lk_wrappers_reject_bad_tensors(dev):
+    slab, g_pair, fields, runs_y, runs_x = _lk_problem(dev, (16, 24))
+    t1, t2 = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
+    with pytest.raises(ValueError, match="expected shape"):
+        lk_build.lk_build_planes(slab[1:], g_pair, 13, 5, runs_y, runs_x)
+    with pytest.raises(TypeError, match="float32"):
+        lk_build.lk_build_planes(slab, g_pair.double(), 13, 5, runs_y, runs_x)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk_iter.lk_gn_iterate(t1.transpose(1, 2).contiguous().transpose(1, 2), t2, *fields, 5, 5,
+                              13)
+    with pytest.raises(ValueError, match="expected shape"):
+        lk_iter.lk_gn_iterate(t1[:100], t2, *fields, 5, 5, 13)
+    with pytest.raises(ValueError, match="one .H, W. shape"):
+        lk_iter.lk_gn_iterate(t1, t2, *fields[:-1], fields[-1][:8], 5, 5, 13)
+    with pytest.raises(ValueError, match="do not match"):
+        small = _lk_problem(dev, (8, 24))[2]
+        lk_iter.lk_fused(slab, g_pair, *small, 5, 5, 13, runs_y, runs_x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        lk_iter.lk_fused(slab, g_pair, *fields[:-1], fields[-1].cpu(), 5, 5, 13, runs_y, runs_x)
+
+
+@pytest.mark.parametrize("name", LK_NAMES)
+def test_lk_pipeline_on_card_matches_cpu(dev, name):
+    im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
+    counters = (lk_build.lk_build_planes, lk_iter.lk_gn_iterate, warp_tent.warp_pair,
+                liu_shen_iter.liu_shen_iterate)
+    before = [c.launches for c in counters]
+    gu, gv = run_config(name, im1, im2, device=dev)
+    cu, cv = run_config(name, im1, im2, device="cpu")
+    launched = [c.launches > b for c, b in zip(counters, before)]
+    assert launched == [True, True, False, name.startswith("LiuSE_")]
     assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6

@@ -9,19 +9,25 @@ import numpy as np
 import pytest
 
 from opticalflow_ri_tpu import configs as jcfg
+from opticalflow_ri_tpu.oracle import lucas_kanade as jlk_oracle
 from opticalflow_ri_tpu.ops import gaussian as jgauss
 from opticalflow_ri_tpu.ops import resize as jresize
+from opticalflow_ri_tpu.ops import window_sums as jws
 from opticalflow_ri_tpu.utils import synthetic as jsynth
 
 from opticalflow_ri_tpu_torch import configs as tcfg
+from opticalflow_ri_tpu_torch.models import lucas_kanade as tlk
 from opticalflow_ri_tpu_torch.ops import gaussian as tgauss
 from opticalflow_ri_tpu_torch.ops import resize as tresize
+from opticalflow_ri_tpu_torch.ops import window_sums as tws
 from opticalflow_ri_tpu_torch.utils import synthetic as tsynth
 
 HS_NAMES = ["PyHSchunck_Fs3_4", "PyHSchunck_Fs3_4_PyrLvls2", "HS_Fs0_0", "HS_Fs3_4",
             "HS_Fs3_4_PyrLvls2"]
 LS_NAMES = ["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
             "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"]
+LK_NAMES = ["denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
+            "LK_Fs2_0", "LK_Fs2_0_PyrLvls2"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -59,9 +65,29 @@ def test_particle_image_pair_copy(shape, seed):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("win", [7, 15, 16, 27, 31])
+@pytest.mark.parametrize("near,far", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_window_mask_copy(win, near, far):
+    np.testing.assert_array_equal(tlk.window_mask(win, near, far),
+                                  jlk_oracle.window_mask(win, near, far))
+
+
+@pytest.mark.parametrize("win", [7, 16, 27])
+@pytest.mark.parametrize("near,far", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_runs_from_mask_copy(win, near, far):
+    mask = jlk_oracle.window_mask(win, near, far)
+    assert tws.runs_from_mask(mask) == jws.runs_from_mask(mask)
+
+
+def test_smooth_factorization_copy():
+    for length in range(1, 33):
+        assert tws._smooth_factorization(length) == jws._smooth_factorization(length)
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, opticalflow_ri_tpu_torch, opticalflow_ri_tpu_torch.configs, "
-            "opticalflow_ri_tpu_torch.compile; assert 'jax' not in sys.modules, 'jax imported'")
+            "opticalflow_ri_tpu_torch.compile, opticalflow_ri_tpu_torch.models.lucas_kanade; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -101,8 +127,23 @@ def test_liu_shen_config_fields_match(name):
     assert _adapter_params(opt(tc)) == _adapter_params(opt(jc))
 
 
+@pytest.mark.parametrize("name", LK_NAMES)
+def test_lucas_kanade_config_fields_match(name):
+    jc, tc = jcfg.CONFIGS[name], tcfg.build_config(name)
+    assert (tc.name, tc.filter_sigma, tc.pyr_levels, tc.k_levels, tc.filter_opt, tc.kwargs) == (
+        jc.name, jc.filter_sigma, jc.pyr_levels, jc.k_levels, jc.filter_opt, jc.kwargs)
+    jm, tm = jc.main(), tc.main()
+    keys = ("Niter", "halfWindow", "max_shift", "enableVorticityEnhancement",
+            "computeErrorMap", "provideGenericPyramidalDefaults")
+    assert {k: getattr(tm, k) for k in keys} == {k: getattr(jm, k) for k in keys}
+    assert tm.getGenericPyramidalDefaults() == jm.getGenericPyramidalDefaults()
+    opt = (lambda c: c.optional() if c.optional is not None else None)
+    assert _adapter_params(opt(tc)) == _adapter_params(opt(jc))
+
+
 def test_registry_covers_every_jax_config():
-    assert set(tcfg.CONFIGS) == set(HS_NAMES) | set(LS_NAMES)
+    assert set(tcfg.CONFIGS) == set(HS_NAMES) | set(LS_NAMES) | set(LK_NAMES)
+    assert all(n.startswith(("Farneback_", "FB_", "LiuSE_Farneback_")) for n in tcfg.UNPORTED)
     assert set(tcfg.CONFIGS) | set(tcfg.UNPORTED) == set(jcfg.CONFIGS)
     assert not set(tcfg.CONFIGS) & set(tcfg.UNPORTED)
     for name in tcfg.UNPORTED:

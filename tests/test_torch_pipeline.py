@@ -1,6 +1,7 @@
-"""The PyTorch port's HS and Liu-Shen pyramidal paths against the JAX package,
-end to end on the CPU (AEE <= 5e-6, the whole-pipeline bar), plus the golden
-regressions of tests/test_golden.py."""
+"""The PyTorch port's HS, Liu-Shen and dense-LK pyramidal paths against the
+JAX package, end to end on the CPU (AEE <= 5e-6, the whole-pipeline bar; for
+LK also |d| <= 1.2e-4 on >= 99.9 % of pixels), plus the golden regressions
+of tests/test_golden.py."""
 
 import os
 
@@ -19,6 +20,7 @@ from opticalflow_ri_tpu_torch import (
     LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow,
 )
 from opticalflow_ri_tpu_torch import configs as tcfg
+from opticalflow_ri_tpu_torch.models.lucas_kanade import DenseLucasKanadeAdapter
 from opticalflow_ri_tpu_torch.compile import compiled_pipeline
 from conftest import aee
 
@@ -27,6 +29,10 @@ HS_NAMES = ["HS_Fs0_0", "HS_Fs3_4", "PyHSchunck_Fs3_4", "HS_Fs3_4_PyrLvls2",
             "PyHSchunck_Fs3_4_PyrLvls2"]
 LS_NAMES = ["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
             "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"]
+LK_NAMES = ["denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
+            "LK_Fs2_0", "LK_Fs2_0_PyrLvls2"]
+LK_BAR = 1.2e-4       # ROADMAP's LK bar on u, v
+LK_BULK = 0.999       # LK's |delta| < 0.01 exit can flip on isolated pixels (test_golden.py:51)
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "synthetic96_flows.npz")
 
 
@@ -52,6 +58,19 @@ def test_liu_shen_config_matches_jax(name, pair):
     tu, tv = tcfg.run_config(name, im1, im2, device="cpu")
     assert tu.dtype == torch.float32 and tu.shape == im1.shape and tu.device.type == "cpu"
     assert aee(tu.numpy(), tv.numpy(), np.asarray(ju), np.asarray(jv)) <= AEE_BAR
+
+
+@pytest.mark.parametrize("name", LK_NAMES)
+def test_lucas_kanade_config_matches_jax(name, pair):
+    im1, im2 = pair
+    ju, jv = jcfg.run_config(name, im1, im2)
+    tu, tv = tcfg.run_config(name, im1, im2, device="cpu")
+    assert tu.dtype == torch.float32 and tu.shape == im1.shape and tu.device.type == "cpu"
+    ju, jv = np.asarray(ju), np.asarray(jv)
+    assert aee(tu.numpy(), tv.numpy(), ju, jv) <= AEE_BAR
+    within = (np.abs(tu.numpy() - ju) <= LK_BAR) & (np.abs(tv.numpy() - jv) <= LK_BAR)
+    print(f"{name}: {int((~within).sum())} of {within.size} pixels outside {LK_BAR}")
+    assert within.mean() >= LK_BULK
 
 
 def test_wrapper_matches_jax(pair):
@@ -91,6 +110,18 @@ def test_hs_liu_shen_golden(piv_pair_small):
         FILTER_OPT=0.48, optionalOFlowAlgoAdapter=LiuShenOpticalFlowAlgoAdapter(5),
         device="cpu")
     assert aee(u.numpy(), v.numpy(), golden["hs_ls_u"], golden["hs_ls_v"]) < 1e-3
+
+
+def test_lk_golden(piv_pair_small):
+    """The bulk check of tests/test_golden.py:45-54."""
+    im1, im2, _, _ = piv_pair_small
+    golden = np.load(_GOLDEN)
+    u, v = generic_pyramidal_optical_flow(
+        im1, im2, 2.0, DenseLucasKanadeAdapter(), 2, 1, FILTER_OPT=0.48, warping=False,
+        device="cpu")
+    du = np.abs(u.numpy() - golden["lk_u"])
+    dv = np.abs(v.numpy() - golden["lk_v"])
+    assert ((du < 1e-2) & (dv < 1e-2)).mean() > 0.99
 
 
 def test_liu_shen_refiner_in_the_driver_matches_jax(pair):
