@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's Horn-Schunck pyramidal main path, its Liu-Shen path and
-its dense Lucas-Kanade path on the card, in phases:
+Drives the port's Horn-Schunck pyramidal main path, its Liu-Shen path, its
+dense Lucas-Kanade path and its Farneback path on the card, in phases:
 
   1. device  — requires CUDA (no CPU fallback); prints the card's name and
                power limit, torch, CUDA and nvcc versions;
@@ -16,14 +16,21 @@ its dense Lucas-Kanade path on the card, in phases:
                Liu-Shen solve at 512^2, 333x517 and 2048^2, for a fixed count
                and for an early stop; the LK build and GN loop at 512^2,
                333x517 and 2048^2, the GN loop on calibrated and wild flows;
-               the fused LK build+GN at 512^2 and 333x517);
+               the fused LK build+GN at 512^2 and 333x517; the Farneback
+               updateMatrices at 512^2, 333x517 and 2048^2 on calibrated
+               and wild flows, and the exact gather at 512^2; the Farneback
+               window blur + solve at those shapes in both window modes; the
+               fused Farneback loop at 512^2 and 333x517 in both modes);
   4. main    — the five HS configurations, the README's wrapper call, the
-               four Liu-Shen configurations, the five dense-LK ones and the
-               fused LK solve (``lk_dense_solve(impl="fused")``) on a 512^2
-               synthetic pair, launch counters reset just before; flows held
-               against the port's plain path on the CPU (AEE <= 5e-6) and the
-               96^2 golden flows of HS, HS + Liu-Shen (AEE < 1e-3) and LK
-               (the bulk check of tests/test_golden.py);
+               four Liu-Shen configurations, the five dense-LK ones, the
+               fused LK solve (``lk_dense_solve(impl="fused")``), the five
+               Farneback ones and the fused Farneback loop (``fb_fused`` on
+               the level-0 expansions, held against ``farneback_solve``) on
+               a 512^2 synthetic pair, launch counters reset just before;
+               flows held against the port's plain path on the CPU (AEE <=
+               5e-6) and the 96^2 golden flows of HS, HS + Liu-Shen (AEE <
+               1e-3), LK (the bulk check of tests/test_golden.py) and
+               Farneback (AEE < 2e-3);
   5. times   — CUDA-event medians, kernel path against plain PyTorch on the
                card, per configuration and per kernel at 512^2 and 2048^2.
 
@@ -56,10 +63,15 @@ LK_BUILD_RTOL = 1e-6   # the LK planes, relative
 LK_BAR = 1.2e-4        # absolute on the LK window origins (ROADMAP's LK bar); status equal
 AEE_BAR = 5e-6         # card against the CPU plain path, whole pipeline
 GOLDEN_BAR = 1e-3      # tests/test_golden.py
+FB_GOLDEN_BAR = 2e-3   # tests/test_golden.py:test_fb_golden
+FB_M_BAR = 1e-6        # the Farneback M, relative to max|M|
+FB_FLOW_BAR = 1e-4     # the Farneback flow, absolute (the JAX blur5 and fused kernels' bar)
 REPS = 15
-REPS_2048 = 5          # the LK kernels' A/B at 2048^2, where one plain call takes ~0.1 s
+REPS_2048 = 5          # the LK and FB kernels' A/B at 2048^2, where one plain call takes ~0.1 s
 LK_CONFIGS = ("denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
               "LK_Fs2_0", "LK_Fs2_0_PyrLvls2")
+FB_CONFIGS = ("Farneback_Fs0_0", "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2",
+              "FB_Fs0_0", "FB_Fs0_0_PyrLvls2")
 
 
 def phase(name: str) -> None:
@@ -92,10 +104,13 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: {PKG} not found; run from a checkout of the repo")
     sys.path.insert(0, ROOT)
     from opticalflow_ri_tpu_torch import (
-        GenericPyramidalOpticalFlowWrapper, HSOpticalFlowAlgoAdapter,
+        FarnebackAdapter, GenericPyramidalOpticalFlowWrapper, HSOpticalFlowAlgoAdapter,
         LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow,
     )
     from opticalflow_ri_tpu_torch.configs import run_config
+    from opticalflow_ri_tpu_torch.models.farneback import (
+        _level_plan, _window_blur_spec, farneback_solve, gaussian_blur, poly_expansion,
+    )
     from opticalflow_ri_tpu_torch.models.liu_shen import (
         liu_shen_iteration, liu_shen_precompute, liu_shen_solve,
     )
@@ -103,8 +118,9 @@ def main() -> None:
         DenseLucasKanadeAdapter, lk_dense_solve, lk_kernel_inputs,
     )
     from opticalflow_ri_tpu_torch.ops.cuda import (
-        build, hs_iter, liu_shen_iter, lk_build, lk_iter, warp_tent,
+        build, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
     )
+    from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow as fb_blur
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -138,7 +154,8 @@ def main() -> None:
         return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
 
     err = {"hs_jacobi": 0.0, "warp_pair": 0.0, "liu_shen": 0.0, "lk_build": 0.0,
-           "lk_gn": 0.0, "lk_fused": 0.0}
+           "lk_gn": 0.0, "lk_fused": 0.0, "fb_update_matrices": 0.0, "fb_blur5_flow": 0.0,
+           "fb_fused": 0.0}
     for shape in [(512, 512), (333, 517), (2048, 2048)]:
         fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
         u0, v0 = rand(shape, -2, 2), rand(shape, -2, 2)
@@ -263,6 +280,51 @@ def main() -> None:
             lk_compare("lk_fused", f"{shape} n_iter=5 wild |d|<=20", got, want)
         torch.cuda.empty_cache()
 
+    windows = {"gaussian": _window_blur_spec(33, True), "box": _window_blur_spec(33, False)}
+
+    def fb_expansions(shape, seed=0):
+        """R0, R1 (polyN 7, sigma 1.5) of a particle pair, on the card: PIV-like,
+        so the 2x2 solve is well conditioned."""
+        a, b, _, _ = particle_image_pair(shape=shape, seed=seed)
+        return [poly_expansion(torch.as_tensor(im, device=dev), 7, 1.5).contiguous()
+                for im in (a, b)]
+
+    def fb_compare(name, label, got, want, bar):
+        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"{name} {label}: max|d|={d!r} (bar {bar!r}) bitwise={same}")
+        if not d <= bar:
+            raise AssertionError(f"{name} disagrees with its plain version ({label})")
+        err[name] = max(err[name], d)
+
+    for shape in [(512, 512), (333, 517), (2048, 2048)]:
+        r0, r1 = fb_expansions(shape)
+        cases = [("calibrated", 4.0, 5), ("wild", 20.0, 5)]
+        if shape == (512, 512):
+            cases.append(("calibrated", 4.0, None))
+        for label, dmax, R in cases:
+            fx, fy = rand(shape, -dmax, dmax), rand(shape, -dmax, dmax)
+            got = tent_sample.update_matrices(fx, fy, r0, r1, R)
+            want = tent_sample.update_matrices_plain(fx, fy, r0, r1, R)
+            torch.cuda.synchronize()
+            fb_compare("fb_update_matrices", f"{shape} R={R} {label} |d|<={dmax}", [got], [want],
+                       FB_M_BAR * float(want.abs().max()))
+        z = torch.zeros(shape, dtype=torch.float32, device=dev)
+        m = tent_sample.update_matrices_plain(z, z, r0, r1)
+        for wname, (taps, mode, scale) in windows.items():
+            got = fb_blur.blur5_flow(m, taps, mode, scale)
+            want = fb_blur.blur5_flow_plain(m, taps, mode, scale)
+            torch.cuda.synchronize()
+            fb_compare("fb_blur5_flow", f"{shape} {wname} 33 taps", got, want, FB_FLOW_BAR)
+            if shape != (2048, 2048):
+                fx0, fy0 = rand(shape, -1, 1), rand(shape, -1, 1)
+                got = fb_fused.fb_fused(r0, r1, fx0, fy0, 5, taps, mode, scale)
+                want = fb_fused.fb_fused_plain(r0, r1, fx0, fy0, 5, taps, mode, scale)
+                torch.cuda.synchronize()
+                fb_compare("fb_fused", f"{shape} {wname} n_iters=5", got, want, FB_FLOW_BAR)
+        del r0, r1, m, got, want
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4
     phase("main")
     im1, im2, _, _ = particle_image_pair(shape=(512, 512), seed=0)
@@ -278,7 +340,7 @@ def main() -> None:
                          "PyHSchunck_Fs3_4_PyrLvls2")}
     runs["Wrapper_HS_21_600_Fs3_4"] = wrapper
     for name in ("LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
-                 "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2") + LK_CONFIGS:
+                 "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2") + LK_CONFIGS + FB_CONFIGS:
         runs[name] = lambda a, b, n=name: run_config(n, a, b)
 
     def fused_solve(a, b):
@@ -288,19 +350,41 @@ def main() -> None:
 
     runs["lk_dense_solve_fused"] = fused_solve
 
+    def fb_fused_solve(a, b):
+        """The fused Farneback kernel's entry point: the calibrated iteration
+        loop (window 33 Gaussian, 5 iterations, polyN 7, polySigma 1.5) from
+        zero flow on the level-0 expansions, i.e. ``farneback_solve`` at one
+        level."""
+        lvl = _level_plan(a.shape[0], a.shape[1], 0.5, 0)[0]
+        r0, r1 = (poly_expansion(gaussian_blur(im.float(), lvl["smooth"], lvl["sigma"]), 7, 1.5)
+                  .contiguous() for im in (a, b))
+        z = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+        taps, mode, scale = windows["gaussian"]
+        return fb_fused.fb_fused(r0, r1, z, z, 5, taps, mode, scale)
+
+    runs["fb_fused_solve"] = fb_fused_solve
+
     wrappers = {"hs_jacobi": hs_iter.hs_iterate, "warp_pair": warp_tent.warp_pair,
                 "liu_shen": liu_shen_iter.liu_shen_iterate,
                 "lk_build": lk_build.lk_build_planes, "lk_gn": lk_iter.lk_gn_iterate,
-                "lk_fused": lk_iter.lk_fused}
+                "lk_fused": lk_iter.lk_fused,
+                "fb_update_matrices": tent_sample.update_matrices,
+                "fb_blur5_flow": fb_blur.blur5_flow, "fb_fused": fb_fused.fb_fused}
 
     def expected(name):
         """The kernels a configuration's path launches, and no others.  The
-        LK configurations run with warping=False: no warp.  LiuSE_LK_Fs2_0_*
-        runs Liu-Shen alone (the harness quirk of configs.py)."""
+        LK and FB configurations run with warping=False: no warp.
+        LiuSE_LK_Fs2_0_* and LiuSE_FB_Fs0_0_* run Liu-Shen alone (the harness
+        quirk of configs.py)."""
         if name == "lk_dense_solve_fused":
             return {"lk_fused"}
+        if name == "fb_fused_solve":
+            return {"fb_fused"}
         if name in LK_CONFIGS:
             return {"lk_build", "lk_gn"} | ({"liu_shen"} if name.startswith("LiuSE_") else set())
+        if name in FB_CONFIGS:
+            return ({"fb_update_matrices", "fb_blur5_flow"}
+                    | ({"liu_shen"} if name.startswith("LiuSE_") else set()))
         want = set()
         if not name.startswith("LiuSE_") or "HSchunck" in name:
             want.add("hs_jacobi")
@@ -336,6 +420,16 @@ def main() -> None:
         if not e <= AEE_BAR:
             raise AssertionError(f"{name}: card and CPU disagree")
 
+    z = torch.zeros((512, 512), dtype=torch.float32, device=dev)
+    u, v = flows["fb_fused_solve"]
+    ref = farneback_solve(g1, g2, z, z)
+    e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
+    same = torch.equal(u, ref[0]) and torch.equal(v, ref[1])
+    print(f"fb_fused_solve against farneback_solve(pyr_levels=1) on the card: AEE {e!r} "
+          f"(bar {AEE_BAR}) bitwise={same}")
+    if not e <= AEE_BAR:
+        raise AssertionError("the fused Farneback loop disagrees with farneback_solve")
+
     golden = np.load(GOLDEN)
     s1, s2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
     u, v = generic_pyramidal_optical_flow(
@@ -360,6 +454,11 @@ def main() -> None:
           f"(bar > 0.99)")
     if not bulk > 0.99:
         raise AssertionError("golden LK flows disagree")
+    u, v = generic_pyramidal_optical_flow(s1, s2, 0.0, FarnebackAdapter(), 2, 1, device=dev)
+    e = aee(to_np(u), to_np(v), golden["fb_u"], golden["fb_v"])
+    print(f"golden 96x96 2-level Farneback on {u.device}: AEE {e!r} (bar {FB_GOLDEN_BAR})")
+    if not e < FB_GOLDEN_BAR:
+        raise AssertionError("golden Farneback flows disagree")
 
     # ---------------------------------------------------------------- 5
     phase("times")
@@ -378,7 +477,9 @@ def main() -> None:
         """Route the main path through the plain versions, for the A/B only."""
         swaps = [(hs_iter, "hs_iterate"), (warp_tent, "warp_pair"),
                  (liu_shen_iter, "liu_shen_iterate"), (lk_build, "lk_build_planes"),
-                 (lk_iter, "lk_gn_iterate"), (lk_iter, "lk_fused")]
+                 (lk_iter, "lk_gn_iterate"), (lk_iter, "lk_fused"),
+                 (tent_sample, "update_matrices"), (fb_blur, "blur5_flow"),
+                 (fb_fused, "fb_fused")]
         saved = [getattr(mod, attr) for mod, attr in swaps]
         for mod, attr in swaps:
             setattr(mod, attr, getattr(mod, attr + "_plain"))
@@ -463,6 +564,28 @@ def main() -> None:
         print(json.dumps({"kernel": "lk_fused", "shape": list(shape), "n_iter": 5,
                           "flow": "|d|<=4", "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
         del slab, g_pair, fields
+        # the Farneback kernels at the calibrated config: R = 5, window 33
+        # Gaussian, 5 iterations for the fused loop
+        r0, r1 = fb_expansions(shape)
+        fx, fy = rand(shape, -4, 4), rand(shape, -4, 4)
+        k, p = ab(lambda: tent_sample.update_matrices(fx, fy, r0, r1),
+                  lambda: tent_sample.update_matrices_plain(fx, fy, r0, r1), reps)
+        kernel_times[("fb_update_matrices", shape)] = (k, p)
+        print(json.dumps({"kernel": "fb_update_matrices", "shape": list(shape), "R": 5,
+                          "flow": "|d|<=4", "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        m = tent_sample.update_matrices(z, z, r0, r1)
+        taps, mode, scale = windows["gaussian"]
+        k, p = ab(lambda: fb_blur.blur5_flow(m, taps, mode, scale),
+                  lambda: fb_blur.blur5_flow_plain(m, taps, mode, scale), reps)
+        kernel_times[("fb_blur5_flow", shape)] = (k, p)
+        print(json.dumps({"kernel": "fb_blur5_flow", "shape": list(shape), "window": "gaussian 33",
+                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        k, p = ab(lambda: fb_fused.fb_fused(r0, r1, z, z, 5, taps, mode, scale),
+                  lambda: fb_fused.fb_fused_plain(r0, r1, z, z, 5, taps, mode, scale), reps)
+        kernel_times[("fb_fused", shape)] = (k, p)
+        print(json.dumps({"kernel": "fb_fused", "shape": list(shape), "n_iters": 5,
+                          "window": "gaussian 33", "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        del r0, r1, fx, fy, m
         torch.cuda.empty_cache()
     for name, w in wrappers.items():
         w.launches = saved_counts[name]
@@ -507,6 +630,27 @@ def main() -> None:
          "launches": launches["lk_fused"], "max_abs_err": err["lk_fused"],
          "ms": kernel_times[("lk_fused", (512, 512))][0],
          "plain_ms": kernel_times[("lk_fused", (512, 512))][1]},
+        {"name": "fb_update_matrices", "route": "cuda",
+         "source": "opticalflow_ri_tpu_torch/csrc/fb_update_matrices.cu",
+         "replaces": "opticalflow_ri_tpu/ops/pallas/tent_sample.py:336",
+         "also_replaces": ["opticalflow_ri_tpu/ops/pallas/tent_sample.py:223",
+                           "opticalflow_ri_tpu/ops/pallas/tent_sample.py:531"],
+         "launches": launches["fb_update_matrices"], "max_abs_err": err["fb_update_matrices"],
+         "ms": kernel_times[("fb_update_matrices", (512, 512))][0],
+         "plain_ms": kernel_times[("fb_update_matrices", (512, 512))][1]},
+        {"name": "fb_blur5_flow", "route": "cuda",
+         "source": "opticalflow_ri_tpu_torch/csrc/fb_blur5_flow.cu",
+         "replaces": "opticalflow_ri_tpu/ops/pallas/blur5_flow.py:124",
+         "also_replaces": ["opticalflow_ri_tpu/ops/pallas/blur5_flow.py:196"],
+         "launches": launches["fb_blur5_flow"], "max_abs_err": err["fb_blur5_flow"],
+         "ms": kernel_times[("fb_blur5_flow", (512, 512))][0],
+         "plain_ms": kernel_times[("fb_blur5_flow", (512, 512))][1]},
+        {"name": "fb_fused", "route": "cuda",
+         "source": "opticalflow_ri_tpu_torch/csrc/fb_fused.cu",
+         "replaces": "opticalflow_ri_tpu/ops/pallas/fb_fused2.py:163",
+         "launches": launches["fb_fused"], "max_abs_err": err["fb_fused"],
+         "ms": kernel_times[("fb_fused", (512, 512))][0],
+         "plain_ms": kernel_times[("fb_fused", (512, 512))][1]},
     ]
     for kern in kernels:
         if kern["launches"] < 1:

@@ -1,11 +1,8 @@
-"""Calibrated configuration registry (port of ``configs.py``: the HS,
-Liu-Shen and dense Lucas-Kanade entries).
+"""Calibrated configuration registry (port of ``configs.py``).
 
 The Horn-Schunck h-parameter table and ``hs_alphas`` are copies of the JAX
-package's; the five HS configurations, the five dense-LK ones and the four
-Liu-Shen ones that need no Farneback solver are registered with the same
-fields.  The Farneback names of the JAX package raise ``KeyError`` naming
-the ROADMAP slice that brings them.
+package's; all of its configurations are registered with the same fields:
+five HS, four Liu-Shen, five dense-LK and five Farneback ones.
 
 Use ``run_config(name, im1, im2)`` or ``build_config(name)`` for the pieces.
 """
@@ -15,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from opticalflow_ri_tpu_torch.models.farneback import FarnebackAdapter
 from opticalflow_ri_tpu_torch.models.horn_schunck import HSOpticalFlowAlgoAdapter
 from opticalflow_ri_tpu_torch.models.liu_shen import LiuShenOpticalFlowAlgoAdapter
 from opticalflow_ri_tpu_torch.models.lucas_kanade import DenseLucasKanadeAdapter
@@ -106,6 +104,18 @@ _register(FlowConfig(
     filter_sigma=2.0, pyr_levels=2, filter_opt=0.48,
     optional=lambda: LiuShenOpticalFlowAlgoAdapter(10), kwargs={"warping": False},
 ))
+_register(FlowConfig(
+    "Farneback_Fs0_0", lambda: FarnebackAdapter(), filter_sigma=0.0,
+    pyr_levels=1, filter_opt=0.48,
+))
+_register(FlowConfig(
+    "Farneback_Fs0_0_PyrLvls2", lambda: FarnebackAdapter(), filter_sigma=0.0,
+    pyr_levels=2,
+))
+_register(FlowConfig(
+    "LiuSE_Farneback_Fs0_0_PyrLvls2", lambda: FarnebackAdapter(), filter_sigma=0.0,
+    pyr_levels=2, filter_opt=0.48, optional=lambda: LiuShenOpticalFlowAlgoAdapter(10),
+))
 
 # --- benchmark harness configs ---------------------------------------------
 _register(FlowConfig(
@@ -139,28 +149,24 @@ _register(FlowConfig(
     filter_sigma=2.0, pyr_levels=2,
 ))
 _register(FlowConfig(
+    "FB_Fs0_0", lambda: FarnebackAdapter(windowSize=33, Niters=5, polyN=7, polySigma=1.5),
+))
+_register(FlowConfig(
+    "FB_Fs0_0_PyrLvls2", lambda: FarnebackAdapter(windowSize=33, Niters=5, polyN=7, polySigma=1.5),
+    pyr_levels=2,
+))
+_register(FlowConfig(
     "LiuSE_FB_Fs0_0_PyrLvls2", lambda: LiuShenOpticalFlowAlgoAdapter(0.1),
     filter_sigma=0.0, pyr_levels=2,
 ))
 
-_FARNEBACK = "the Farneback slice (ROADMAP.md Queue 1, item 6)"
-
-# JAX-package configurations not ported yet, with the slice that brings each
-UNPORTED = {
-    "Farneback_Fs0_0": _FARNEBACK,
-    "Farneback_Fs0_0_PyrLvls2": _FARNEBACK,
-    "FB_Fs0_0": _FARNEBACK,
-    "FB_Fs0_0_PyrLvls2": _FARNEBACK,
-    "LiuSE_Farneback_Fs0_0_PyrLvls2": _FARNEBACK,
-}
+# JAX-package configurations not ported yet: none, every one is registered above
+UNPORTED: dict[str, str] = {}
 
 
 def build_config(name: str) -> FlowConfig:
     if name in CONFIGS:
         return CONFIGS[name]
-    if name in UNPORTED:
-        raise KeyError(f"config {name!r} is not ported to PyTorch yet; it comes with "
-                       f"{UNPORTED[name]}")
     raise KeyError(f"unknown config {name!r}")
 
 

@@ -1,0 +1,95 @@
+"""Farneback window blur + flow solve: the Hopper kernel and its plain version.
+
+``blur5_flow`` replaces the TPU kernels ``ops/pallas/blur5_flow.py:
+blur5_flow_pallas`` and ``blur5_flow_banded_pallas`` with one CUDA kernel
+(``csrc/fb_blur5_flow.cu``): the separable window blur of the five M planes,
+y-pass then x-pass, the optional post-scale and the regularised 2x2 solve,
+writing only the flow.  ``blur5_flow_plain`` is the JAX package's stencil
+path (``gaussian_blur5`` or ``box_filter5``, then ``update_flow``,
+``models/farneback.py:154-164, 462-466``) in PyTorch; CPU tensors take it.
+
+``taps`` is the 1-D window (odd length, at most ``MAX_TAPS``), ``mode`` its
+border rule ("mirror": reflect-101, the Gaussian window; "nearest":
+replicate, the box), ``scale`` the post-scale (1.0: none).  All return
+(flowx, flowy), each (H, W) float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from opticalflow_ri_tpu_torch.ops.cuda import build
+from opticalflow_ri_tpu_torch.ops.stencil import correlate1d
+
+MAX_TAPS = 129  # csrc/fb_common.cuh: kMaxTaps
+MODES = {"mirror": 0, "nearest": 1}
+
+
+def check_window(taps, mode: str):
+    """The taps as float32 and the border rule's code; raises on a window
+    the kernels do not take."""
+    k = np.asarray(taps, dtype=np.float32).reshape(-1)
+    if k.size % 2 == 0 or k.size > MAX_TAPS:
+        raise ValueError(f"the window blur takes an odd number of taps up to {MAX_TAPS}, "
+                         f"got {k.size}")
+    if mode not in MODES:
+        raise ValueError(f"window blur mode must be one of {tuple(MODES)}, got {mode!r}")
+    return k, MODES[mode]
+
+
+def update_flow(m):
+    """Regularised per-pixel 2x2 solve (ref: optical_flow_farneback.cl:408-429)."""
+    g11, g12, g22, h1, h2 = m[0], m[1], m[2], m[3], m[4]
+    det_inv = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    return (g11 * h2 - g12 * h1) * det_inv, (g22 * h1 - g12 * h2) * det_inv
+
+
+def blur5_flow_plain(m, taps, mode: str, scale: float = 1.0):
+    """Blur the five planes of ``m`` (y-pass, then x-pass), post-scale, solve."""
+    k, _ = check_window(taps, mode)
+    out = correlate1d(m, k, axis=-2, mode=mode)
+    out = correlate1d(out, k, axis=-1, mode=mode)
+    if scale != 1.0:
+        out = out * float(np.float32(scale))
+    return update_flow(out)
+
+
+def blur5_flow(m, taps, mode: str, scale: float = 1.0):
+    """Window-blur M and solve for the flow; returns (flowx, flowy).
+
+    CPU tensors run ``blur5_flow_plain``; CUDA tensors launch the kernel,
+    one 256-thread block per 32x32 tile.
+    """
+    if m.device.type == "cpu":
+        return blur5_flow_plain(m, taps, mode, scale)
+    k, code = check_window(taps, mode)
+    if m.dim() != 3 or m.shape[0] != 5:
+        raise ValueError(f"blur5_flow: m must be (5, H, W), got {tuple(m.shape)}")
+    h, w = m.shape[1], m.shape[2]
+    if m.device.type != "cuda":
+        raise ValueError(f"blur5_flow: m must be on a CUDA device, got {m.device}")
+    build.check_tensor("blur5_flow", m, (5, h, w), m.device)
+    if h < 2 or w < 2:
+        raise ValueError(f"blur5_flow: fields must be at least 2x2, got {(h, w)}")
+    dev = m.device
+    fx = torch.empty((h, w), dtype=torch.float32, device=dev)
+    fy = torch.empty_like(fx)
+    table = (ctypes.c_float * k.size)(*k.tolist())
+    entry = build.load_library().ofri_fb_blur5_flow
+    entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blur5_flow.launches += 1
+    rc = entry(m.data_ptr(), fx.data_ptr(), fy.data_ptr(), h, w,
+               ctypes.cast(table, ctypes.c_void_p), k.size, code, float(np.float32(scale)),
+               dev.index or 0, stream)
+    build.check(rc, "blur5_flow")
+    return fx, fy
+
+
+blur5_flow.launches = 0

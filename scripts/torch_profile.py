@@ -4,8 +4,10 @@
     python3 scripts/torch_profile.py [--out chiprun_out/torch_profile.json]
 
 For each named configuration on the 512^2 synthetic pair
-(``particle_image_pair(shape=(512, 512), seed=0)``) and for each dense-LK
-kernel at 512^2 and 2048^2 (half window 13, R = 5, 5 GN steps), it reports:
+(``particle_image_pair(shape=(512, 512), seed=0)``), for each dense-LK
+kernel at 512^2 and 2048^2 (half window 13, R = 5, 5 GN steps) and for each
+Farneback kernel there (R = 5, window 33 Gaussian, 5 iterations for the fused
+loop), kernel and plain version, it reports:
 
   * wall_ms   — host clock around one call ended by ``torch.cuda.synchronize()``,
                 mean of ``--reps`` calls after a warm-up, unprofiled;
@@ -35,12 +37,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from opticalflow_ri_tpu_torch.configs import run_config  # noqa: E402
+from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_expansion  # noqa: E402
 from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs  # noqa: E402
-from opticalflow_ri_tpu_torch.ops.cuda import lk_build, lk_iter  # noqa: E402
+from opticalflow_ri_tpu_torch.ops.cuda import (  # noqa: E402
+    blur5_flow, fb_fused, lk_build, lk_iter, tent_sample,
+)
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair  # noqa: E402
 
 CONFIGS = ("denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
-           "LK_Fs2_0", "LK_Fs2_0_PyrLvls2", "HS_Fs3_4_PyrLvls2", "LiuSE_HS_Fs3_4_PyrLvls2")
+           "LK_Fs2_0", "LK_Fs2_0_PyrLvls2", "HS_Fs3_4_PyrLvls2", "LiuSE_HS_Fs3_4_PyrLvls2",
+           "Farneback_Fs0_0", "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2",
+           "FB_Fs0_0", "FB_Fs0_0_PyrLvls2")
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -121,6 +128,25 @@ def main() -> None:
         for label, fn in calls.items():
             rows.append(measure(label, fn, reps, gpu, shape=list(shape)))
         del t1, t2, slab, g_pair, fields
+
+        p1, p2, _, _ = particle_image_pair(shape=shape, seed=0)
+        r0, r1 = (poly_expansion(torch.as_tensor(im, device=dev), 7, 1.5).contiguous()
+                  for im in (p1, p2))
+        z = torch.zeros(shape, dtype=torch.float32, device=dev)
+        m = tent_sample.update_matrices(z, z, r0, r1)
+        taps, mode, scale = _window_blur_spec(33, True)
+        calls = {
+            "fb_update_matrices": lambda: tent_sample.update_matrices(u0, v0, r0, r1),
+            "fb_update_matrices_plain":
+                lambda: tent_sample.update_matrices_plain(u0, v0, r0, r1),
+            "fb_blur5_flow": lambda: blur5_flow.blur5_flow(m, taps, mode, scale),
+            "fb_blur5_flow_plain": lambda: blur5_flow.blur5_flow_plain(m, taps, mode, scale),
+            "fb_fused": lambda: fb_fused.fb_fused(r0, r1, z, z, 5, taps, mode, scale),
+            "fb_fused_plain": lambda: fb_fused.fb_fused_plain(r0, r1, z, z, 5, taps, mode, scale),
+        }
+        for label, fn in calls.items():
+            rows.append(measure(label, fn, reps, gpu, shape=list(shape)))
+        del r0, r1, m
         torch.cuda.empty_cache()
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -11,7 +11,9 @@ for bit; the Liu-Shen error, reduced in another order, agrees to 1e-5
 relative, and the Liu-Shen stop comes at the same iteration.  The dense-LK
 kernels are held to their bars (the LK build to rtol 1e-6, the GN loop and
 the fused build+GN to 1.2e-4 on the window origins with status equal); all
-three are expected to be bit-identical.
+three are expected to be bit-identical.  The three Farneback kernels
+(updateMatrices, window blur + solve, the fused loop) equal their plain
+versions bit for bit.
 """
 
 import numpy as np
@@ -19,9 +21,12 @@ import pytest
 import torch
 
 from opticalflow_ri_tpu_torch.configs import run_config
+from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_expansion
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
 from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
-from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter, lk_build, lk_iter, warp_tent
+from opticalflow_ri_tpu_torch.ops.cuda import (
+    blur5_flow, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
+)
 from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -252,4 +257,111 @@ def test_lk_pipeline_on_card_matches_cpu(dev, name):
     cu, cv = run_config(name, im1, im2, device="cpu")
     launched = [c.launches > b for c, b in zip(counters, before)]
     assert launched == [True, True, False, name.startswith("LiuSE_")]
+    assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+
+
+# ---------------------------------------------------------------- Farneback
+
+FB_NAMES = ["Farneback_Fs0_0", "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2",
+            "FB_Fs0_0", "FB_Fs0_0_PyrLvls2"]
+FB_SHAPES = [(2, 2), (5, 7), (47, 61), (333, 517)]
+WINDOWS = {"gaussian": _window_blur_spec(33, True), "box": _window_blur_spec(33, False)}
+
+
+def _fb_expansions(dev, shape, seed=5):
+    """R0, R1 of a particle pair cut to ``shape`` (PIV-like, so the 2x2 solve
+    is well conditioned), on the card."""
+    big = (max(shape[0], 16), max(shape[1], 16))
+    im1, im2, _, _ = particle_image_pair(shape=big, seed=seed)
+    return [poly_expansion(torch.tensor(im[:shape[0], :shape[1]], device=dev), 7, 1.5)
+            .contiguous() for im in (im1, im2)]
+
+
+def _fb_flow(dev, shape, dmax, seed=6):
+    rng = np.random.default_rng(seed)
+    return _rand(rng, shape, -dmax, dmax, dev), _rand(rng, shape, -dmax, dmax, dev)
+
+
+@pytest.mark.parametrize("shape", FB_SHAPES)
+@pytest.mark.parametrize("dmax", [4.0, 20.0], ids=["calibrated", "wild"])
+@pytest.mark.parametrize("R", [5, None], ids=["R5", "gather"])
+def test_update_matrices_kernel_equals_plain(dev, shape, dmax, R):
+    r0, r1 = _fb_expansions(dev, shape)
+    fx, fy = _fb_flow(dev, shape, dmax)
+    before = tent_sample.update_matrices.launches
+    got = tent_sample.update_matrices(fx, fy, r0, r1, R)
+    want = tent_sample.update_matrices_plain(fx, fy, r0, r1, R)
+    torch.cuda.synchronize()
+    assert tent_sample.update_matrices.launches == before + 1
+    assert got.shape == (5, *shape)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", FB_SHAPES)
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_blur5_flow_kernel_equals_plain(dev, shape, window):
+    r0, r1 = _fb_expansions(dev, shape)
+    fx, fy = _fb_flow(dev, shape, 2.0)
+    m = tent_sample.update_matrices_plain(fx, fy, r0, r1)
+    taps, mode, scale = WINDOWS[window]
+    before = blur5_flow.blur5_flow.launches
+    got = blur5_flow.blur5_flow(m, taps, mode, scale)
+    want = blur5_flow.blur5_flow_plain(m, taps, mode, scale)
+    torch.cuda.synchronize()
+    assert blur5_flow.blur5_flow.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", FB_SHAPES)
+@pytest.mark.parametrize("window", list(WINDOWS))
+@pytest.mark.parametrize("n_iters", [0, 1, 5])
+def test_fb_fused_kernel_equals_plain(dev, shape, window, n_iters):
+    r0, r1 = _fb_expansions(dev, shape)
+    fx0, fy0 = _fb_flow(dev, shape, 1.0)
+    taps, mode, scale = WINDOWS[window]
+    before = fb_fused.fb_fused.launches
+    got = fb_fused.fb_fused(r0, r1, fx0, fy0, n_iters, taps, mode, scale)
+    want = fb_fused.fb_fused_plain(r0, r1, fx0, fy0, n_iters, taps, mode, scale)
+    torch.cuda.synchronize()
+    assert fb_fused.fb_fused.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fb_wrappers_reject_bad_tensors(dev):
+    r0, r1 = _fb_expansions(dev, (16, 24))
+    fx, fy = _fb_flow(dev, (16, 24), 2.0)
+    taps, mode, scale = WINDOWS["gaussian"]
+    with pytest.raises(ValueError, match="expected shape"):
+        tent_sample.update_matrices(fx, fy, r0[:4], r1)
+    with pytest.raises(TypeError, match="float32"):
+        tent_sample.update_matrices(fx, fy.double(), r0, r1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tent_sample.update_matrices(fx, fy.cpu(), r0, r1)
+    with pytest.raises(ValueError, match="sample_max_shift"):
+        tent_sample.update_matrices(fx, fy, r0, r1, -2)
+    m = tent_sample.update_matrices(fx, fy, r0, r1)
+    with pytest.raises(ValueError, match="contiguous"):
+        blur5_flow.blur5_flow(m.transpose(1, 2).contiguous().transpose(1, 2), taps, mode)
+    with pytest.raises(ValueError, match="odd number of taps"):
+        blur5_flow.blur5_flow(m, np.ones(4, np.float32), "nearest")
+    with pytest.raises(ValueError, match="mode"):
+        blur5_flow.blur5_flow(m, taps, "constant")
+    with pytest.raises(ValueError, match="expected shape"):
+        fb_fused.fb_fused(r0, r1[:, :8], fx, fy, 5, taps, mode)
+    with pytest.raises(ValueError, match="n_iters"):
+        fb_fused.fb_fused(r0, r1, fx, fy, -1, taps, mode)
+
+
+@pytest.mark.parametrize("name", FB_NAMES)
+def test_fb_pipeline_on_card_matches_cpu(dev, name):
+    im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
+    counters = (tent_sample.update_matrices, blur5_flow.blur5_flow, warp_tent.warp_pair,
+                liu_shen_iter.liu_shen_iterate, fb_fused.fb_fused)
+    before = [c.launches for c in counters]
+    gu, gv = run_config(name, im1, im2, device=dev)
+    cu, cv = run_config(name, im1, im2, device="cpu")
+    launched = [c.launches > b for c, b in zip(counters, before)]
+    assert launched == [True, True, False, name.startswith("LiuSE_"), False]
     assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6

@@ -1,7 +1,8 @@
-"""The PyTorch port's HS, Liu-Shen and dense-LK pyramidal paths against the
-JAX package, end to end on the CPU (AEE <= 5e-6, the whole-pipeline bar; for
-LK also |d| <= 1.2e-4 on >= 99.9 % of pixels), plus the golden regressions
-of tests/test_golden.py."""
+"""The PyTorch port's HS, Liu-Shen, dense-LK and Farneback pyramidal paths
+against the JAX package, end to end on the CPU (AEE <= 5e-6, the
+whole-pipeline bar; for LK also |d| <= 1.2e-4 on >= 99.9 % of pixels, for
+Farneback |d| <= 6.7e-6 everywhere), plus the golden regressions of
+tests/test_golden.py."""
 
 import os
 
@@ -20,6 +21,7 @@ from opticalflow_ri_tpu_torch import (
     LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow,
 )
 from opticalflow_ri_tpu_torch import configs as tcfg
+from opticalflow_ri_tpu_torch.models.farneback import FarnebackAdapter
 from opticalflow_ri_tpu_torch.models.lucas_kanade import DenseLucasKanadeAdapter
 from opticalflow_ri_tpu_torch.compile import compiled_pipeline
 from conftest import aee
@@ -31,7 +33,10 @@ LS_NAMES = ["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
             "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"]
 LK_NAMES = ["denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
             "LK_Fs2_0", "LK_Fs2_0_PyrLvls2"]
+FB_NAMES = ["Farneback_Fs0_0", "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2",
+            "FB_Fs0_0", "FB_Fs0_0_PyrLvls2"]
 LK_BAR = 1.2e-4       # ROADMAP's LK bar on u, v
+FB_BAR = 6.7e-6       # ROADMAP / PARITY.md Farneback flow bar on u, v
 LK_BULK = 0.999       # LK's |delta| < 0.01 exit can flip on isolated pixels (test_golden.py:51)
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "synthetic96_flows.npz")
 
@@ -71,6 +76,19 @@ def test_lucas_kanade_config_matches_jax(name, pair):
     within = (np.abs(tu.numpy() - ju) <= LK_BAR) & (np.abs(tv.numpy() - jv) <= LK_BAR)
     print(f"{name}: {int((~within).sum())} of {within.size} pixels outside {LK_BAR}")
     assert within.mean() >= LK_BULK
+
+
+@pytest.mark.parametrize("name", FB_NAMES)
+def test_farneback_config_matches_jax(name, pair):
+    im1, im2 = pair
+    ju, jv = jcfg.run_config(name, im1, im2)
+    tu, tv = tcfg.run_config(name, im1, im2, device="cpu")
+    assert tu.dtype == torch.float32 and tu.shape == im1.shape and tu.device.type == "cpu"
+    ju, jv = np.asarray(ju), np.asarray(jv)
+    assert aee(tu.numpy(), tv.numpy(), ju, jv) <= AEE_BAR
+    d = max(float(np.abs(tu.numpy() - ju).max()), float(np.abs(tv.numpy() - jv).max()))
+    print(f"{name}: max|d| {d!r} (bar {FB_BAR})")
+    assert d <= FB_BAR
 
 
 def test_wrapper_matches_jax(pair):
@@ -122,6 +140,13 @@ def test_lk_golden(piv_pair_small):
     du = np.abs(u.numpy() - golden["lk_u"])
     dv = np.abs(v.numpy() - golden["lk_v"])
     assert ((du < 1e-2) & (dv < 1e-2)).mean() > 0.99
+
+
+def test_fb_golden(piv_pair_small):
+    im1, im2, _, _ = piv_pair_small
+    golden = np.load(_GOLDEN)
+    u, v = generic_pyramidal_optical_flow(im1, im2, 0.0, FarnebackAdapter(), 2, 1, device="cpu")
+    assert aee(u.numpy(), v.numpy(), golden["fb_u"], golden["fb_v"]) < 2e-3
 
 
 def test_liu_shen_refiner_in_the_driver_matches_jax(pair):
