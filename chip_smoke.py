@@ -11,11 +11,15 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
   2. build   — builds every kernel from csrc/ with nvcc, one process per
                source;
   3. parity  — each kernel against its plain PyTorch version on the same
-               CUDA tensors (HS Jacobi at 512^2, 333x517 and 2048^2; the pair
+               CUDA tensors (HS Jacobi at 2x2, 3x517, 333x517, 512^2 and
+               2048^2, bit for bit, at 0, 1, T-1, T, T+1, 100 and 600
+               iterations, T its iterations per launch; the pair
                warp at 512^2 and 333x517 on calibrated and wild flows; the
                Liu-Shen solve at 512^2, 333x517 and 2048^2, for a fixed count
-               and for an early stop; the LK build and GN loop at 512^2,
-               333x517 and 2048^2, the GN loop on calibrated and wild flows;
+               and for an early stop; the LK build at 512^2, 333x517 and
+               2048^2, bit for bit, with the symmetric and an asymmetric
+               window, and a four-run window at 512^2; the GN loop at those
+               shapes on calibrated and wild flows;
                the fused LK build+GN at 512^2 and 333x517; the Farneback
                updateMatrices at 512^2, 333x517 and 2048^2 on calibrated
                and wild flows, and the exact gather at 512^2; the Farneback
@@ -32,12 +36,18 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                1e-3), LK (the bulk check of tests/test_golden.py) and
                Farneback (AEE < 2e-3);
   5. times   — CUDA-event medians, kernel path against plain PyTorch on the
-               card, per configuration and per kernel at 512^2 and 2048^2.
+               card, per configuration and per kernel at 512^2 and 2048^2;
+               the device time per call (a CUDA graph replayed back to
+               back; at 2048^2 for the HS and LK-build kernels) beside the
+               bound;
+               for the pair warp also one ``F.grid_sample`` call, its
+               library yardstick.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last line is ``{"ok": true, "device": {...}}``; the line
-before it lists each kernel with its launches, error and times.  Imports no
-JAX.
+before it lists each kernel with its launches, error, times at 512^2, bound
+(``kernel_costs``, ``bound_ms``) and library time (null where no single
+PyTorch call computes the kernel's function).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -56,10 +66,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.join(ROOT, "opticalflow_ri_tpu_torch")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "synthetic96_flows.npz")
 
-HS_BAR = 1e-5          # absolute, the bar of tests/test_pallas_kernels.py
 LS_BAR = 1e-5          # absolute on u, v; relative on err
 WARP_BAR_REL = 1e-5    # relative to the image's range
-LK_BUILD_RTOL = 1e-6   # the LK planes, relative
 LK_BAR = 1.2e-4        # absolute on the LK window origins (ROADMAP's LK bar); status equal
 AEE_BAR = 5e-6         # card against the CPU plain path, whole pipeline
 GOLDEN_BAR = 1e-3      # tests/test_golden.py
@@ -68,6 +76,8 @@ FB_M_BAR = 1e-6        # the Farneback M, relative to max|M|
 FB_FLOW_BAR = 1e-4     # the Farneback flow, absolute (the JAX blur5 and fused kernels' bar)
 REPS = 15
 REPS_2048 = 5          # the LK and FB kernels' A/B at 2048^2, where one plain call takes ~0.1 s
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 LK_CONFIGS = ("denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
               "LK_Fs2_0", "LK_Fs2_0_PyrLvls2")
 FB_CONFIGS = ("Farneback_Fs0_0", "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2",
@@ -83,6 +93,41 @@ def gpu_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_costs(h: int, w: int, hs_niter: int = 100) -> dict:
+    """(bytes, operations) of one call of each kernel on an h x w image, as
+    the times phase calls it (HS at ``hs_niter`` iterations, LK at R = 5 and
+    5 GN steps, FB at R = 5, 33 taps and 5 rounds, Liu-Shen at 60 steps):
+    each input read once and each output written
+    once; operations are the kernel's float arithmetic per pixel, from its
+    source (HS: 27 per iteration and 5 for the reciprocal; warp: 36 per image;
+    Liu-Shen: 68 per step; LK build: 1 product and 6 ladder adds per pass
+    at the L = 27 window, per shift and gradient; LK GN: 8 gathered plane
+    reads and ~60 operations per step; the fused LK build: the two-level
+    sums' 10 adds per pass; FB updateMatrices ~100; FB blur + solve: 5 planes,
+    2 passes of 33 taps, a product and a sum each, and the solve)."""
+    n = h * w
+    core = (h + 31) * (w + 31)       # the LK gradient pair's planes
+    slab = (h + 41) * (w + 41)       # the LK J slab at R = 5
+    return {
+        "hs_jacobi": (28 * n, (27 * hs_niter + 5) * n),
+        "warp_pair": (32 * n, 72 * n),
+        "liu_shen": (48 * n, 68 * 60 * n),                          # 60 steps
+        "lk_build": (4 * (slab + 2 * core + 2 * 121 * n), 2 * 121 * 13 * n),
+        "lk_gn": ((44 + 4 * 8 * 5) * n, 60 * 5 * n),                # 5 steps
+        "lk_fused": (4 * (slab + 2 * core + 11 * n), (2 * 121 * 21 + 300) * n),
+        "fb_update_matrices": (68 * n, 100 * n),
+        "fb_blur5_flow": (28 * n, (5 * 2 * 33 * 2 + 15) * n),
+        "fb_fused": (56 * n, 5 * (100 + 675) * n),                   # 5 rounds
+    }
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the float32 peak, and which it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def aee(u, v, u_ref, v_ref) -> float:
@@ -156,18 +201,23 @@ def main() -> None:
     err = {"hs_jacobi": 0.0, "warp_pair": 0.0, "liu_shen": 0.0, "lk_build": 0.0,
            "lk_gn": 0.0, "lk_fused": 0.0, "fb_update_matrices": 0.0, "fb_blur5_flow": 0.0,
            "fb_fused": 0.0}
-    for shape in [(512, 512), (333, 517), (2048, 2048)]:
+    # the HS kernel runs STEPS_PER_LAUNCH iterations a launch: every count
+    # around that depth, 100 and 600 as the configs run them
+    steps = hs_iter.STEPS_PER_LAUNCH
+    for shape in [(2, 2), (3, 517), (333, 517), (512, 512), (2048, 2048)]:
         fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
         u0, v0 = rand(shape, -2, 2), rand(shape, -2, 2)
-        got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, 100)
-        want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, 100)
-        torch.cuda.synchronize()
-        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"hs_jacobi {shape} niter=100: max|d|={d!r} (bar {HS_BAR}) bitwise={same}")
-        if not d <= HS_BAR:
-            raise AssertionError(f"hs_jacobi disagrees with its plain version at {shape}")
-        err["hs_jacobi"] = max(err["hs_jacobi"], d)
+        for niter in (0, 1, steps - 1, steps, steps + 1, 100, 600):
+            got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter)
+            want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter)
+            torch.cuda.synchronize()
+            d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"hs_jacobi {shape} niter={niter} ({len(hs_iter.launch_plan(niter, steps))} "
+                  f"launches): max|d|={d!r} (bar: bitwise) bitwise={same}")
+            if not same:
+                raise AssertionError(f"hs_jacobi disagrees with its plain version at {shape}")
+            err["hs_jacobi"] = max(err["hs_jacobi"], d)
     for shape in [(512, 512), (333, 517)]:
         for label, dmax in (("calibrated", 4.0), ("wild", 20.0)):
             args = [rand(shape, 0, 255), rand(shape, 0, 255)]
@@ -234,11 +284,12 @@ def main() -> None:
         b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
         return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
 
-    def lk_problem(pair, dmax=4.0):
+    def lk_problem(pair, dmax=4.0, asym=(0, 0, 0, 0)):
         """The LK kernels' inputs (half window 13, R = 5: 121 shifts) for a
         pair and a random initial flow of |d| <= dmax."""
         shape = tuple(pair[0].shape)
-        return lk_kernel_inputs(*pair, rand(shape, -dmax, dmax), rand(shape, -dmax, dmax))
+        return lk_kernel_inputs(*pair, rand(shape, -dmax, dmax), rand(shape, -dmax, dmax),
+                                asym=asym)
 
     def lk_compare(name, label, got, want):
         d = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
@@ -250,22 +301,36 @@ def main() -> None:
             raise AssertionError(f"{name} disagrees with its plain version ({label})")
         err[name] = max(err[name], d)
 
+    # the LK build's windows: symmetric, asymmetric (near and far taps
+    # dropped in x: two runs), and four runs of every ladder form
+    lk_windows = {"symmetric": None, "asym (1, 0, 0, 1)": (1, 0, 0, 1),
+                  "four runs": (((0, 3), (5, 10), (12, 26), (28, 31)),
+                                ((0, 26), (27, 27), (28, 29), (30, 31)))}
     for shape in [(512, 512), (333, 517), (2048, 2048)]:
         pair = lk_pair(shape)
-        slab, g_pair, _, runs_y, runs_x = lk_problem(pair)
-        got = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
-        want = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
-        torch.cuda.synchronize()
-        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        ok = all(torch.allclose(g, w, rtol=LK_BUILD_RTOL, atol=0) for g, w in zip(got, want))
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"lk_build {shape} 2x121 planes: max|d|={d!r} within rtol {LK_BUILD_RTOL}={ok} "
-              f"bitwise={same}")
-        if not ok:
-            raise AssertionError(f"lk_build disagrees with its plain version at {shape}")
-        err["lk_build"] = max(err["lk_build"], d)
-        del want
-        t1, t2 = got
+        for wname, window in lk_windows.items():
+            if wname == "four runs" and shape != (512, 512):
+                continue
+            asym = window if wname.startswith("asym") else (0, 0, 0, 0)
+            slab, g_pair, _, runs_y, runs_x = lk_problem(pair, asym=asym)
+            if wname == "four runs":
+                runs_y, runs_x = window
+            got = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
+            want = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
+            torch.cuda.synchronize()
+            d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"lk_build {shape} {wname} window {runs_y} x {runs_x}, 2x121 planes: "
+                  f"max|d|={d!r} (bar: bitwise) bitwise={same}")
+            if not same:
+                raise AssertionError(f"lk_build disagrees with its plain version at {shape}")
+            err["lk_build"] = max(err["lk_build"], d)
+            if wname == "symmetric":  # the GN and fused kernels take these
+                sym = (slab, g_pair, runs_y, runs_x, got)
+            del got, want
+            torch.cuda.empty_cache()
+        slab, g_pair, runs_y, runs_x, (t1, t2) = sym
+        del sym
         for label, dmax in (("calibrated", 4.0), ("wild", 20.0)):
             fields = lk_problem(pair, dmax)[2]
             got = lk_iter.lk_gn_iterate(t1, t2, *fields, 5, 5, 13)
@@ -504,6 +569,46 @@ def main() -> None:
                 k.append(run_kernel()); p.append(run_plain())
         return statistics.median(k), statistics.median(p)
 
+    def device_ms(fn, replays: int) -> float:
+        """The call captured once in a CUDA graph and replayed back to back:
+        the device's time per call, without the host's enqueue."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        torch.cuda.empty_cache()
+        return start.elapsed_time(end) / replays
+
+    def grid_sample_pair(args, max_shift=8):
+        """The library yardstick of the pair warp: one ``F.grid_sample`` call
+        over both images as a batch of two (bilinear, border padding), its
+        grid built beforehand from the clipped displacements."""
+        import torch.nn.functional as F
+        lo, hi = warp_tent._clip_bounds(max_shift)
+        h, w = args[0].shape
+        yy, xx = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                                torch.arange(w, device=dev, dtype=torch.float32), indexing="ij")
+        ims = torch.stack(args[:2])[:, None]
+        dys = torch.stack([args[2], args[4]]).clamp(lo, hi)
+        dxs = torch.stack([args[3], args[5]]).clamp(lo, hi)
+        grid = torch.stack([2 * (xx + dxs) / (w - 1) - 1, 2 * (yy + dys) / (h - 1) - 1], dim=-1)
+        return lambda: F.grid_sample(ims, grid, mode="bilinear", padding_mode="border",
+                                     align_corners=True)
+
     saved_counts = dict(launches)
     config_times = {}
     for name, fn in runs.items():
@@ -512,21 +617,42 @@ def main() -> None:
         print(json.dumps({"config": name, "shape": [512, 512], "kernel_ms": k, "plain_ms": p,
                           "gpu": gpu}))
 
-    kernel_times = {}
+    kernel_times, device_times, library_times = {}, {}, {}
+
+    def time_kernel(name, shape, kernel_fn, plain_fn, reps, replays, **info):
+        """Event medians of kernel and plain in turns; the device time per
+        call from graph replays (every kernel at 512^2, the redesigned HS
+        and LK-build kernels at 2048^2 too); the bound of the call."""
+        k, p = ab(kernel_fn, plain_fn, reps)
+        kernel_times[(name, shape)] = (k, p)
+        rec = {"kernel": name, "shape": list(shape), **info, "kernel_ms": k, "plain_ms": p}
+        if shape == (512, 512) or name in ("hs_jacobi", "lk_build"):
+            device_times[(name, shape)] = rec["device_ms"] = device_ms(kernel_fn, replays)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(*kernel_costs(*shape)[name])
+        print(json.dumps({**rec, "gpu": gpu}))
+
     for shape in [(512, 512), (2048, 2048)]:
+        small = shape == (512, 512)
+        reps = REPS if small else REPS_2048
         fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
         z = torch.zeros(shape, device=dev)
-        k, p = ab(lambda: hs_iter.hs_iterate(fx, fy, ft, z, z, 1.0, 100),
-                  lambda: hs_iter.hs_iterate_plain(fx, fy, ft, z, z, 1.0, 100))
-        kernel_times[("hs_jacobi", shape)] = (k, p)
-        print(json.dumps({"kernel": "hs_jacobi", "shape": list(shape), "niter": 100,
-                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("hs_jacobi", shape, lambda: hs_iter.hs_iterate(fx, fy, ft, z, z, 1.0, 100),
+                    lambda: hs_iter.hs_iterate_plain(fx, fy, ft, z, z, 1.0, 100), REPS, 20,
+                    niter=100, steps_per_launch=hs_iter.STEPS_PER_LAUNCH)
         args = [rand(shape, 0, 255), rand(shape, 0, 255)]
         args += [rand(shape, -4, 4) for _ in range(4)]
-        k, p = ab(lambda: warp_tent.warp_pair(*args), lambda: warp_tent.warp_pair_plain(*args))
-        kernel_times[("warp_pair", shape)] = (k, p)
-        print(json.dumps({"kernel": "warp_pair", "shape": list(shape), "flow": "|d|<=4",
-                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("warp_pair", shape, lambda: warp_tent.warp_pair(*args),
+                    lambda: warp_tent.warp_pair_plain(*args), REPS, 50, flow="|d|<=4")
+        library = grid_sample_pair(args)
+        lib_out = library()
+        d_lib = max(float((lib_out[i, 0] - o).abs().max())
+                    for i, o in enumerate(warp_tent.warp_pair(*args)))
+        library_times[("warp_pair", shape)] = lib = statistics.median(
+            event_ms(library) for _ in range(REPS))
+        print(json.dumps({"library": "F.grid_sample, batch of 2", "yardstick_of": "warp_pair",
+                          "shape": list(shape), "library_ms": lib,
+                          "max_abs_diff_to_kernel": d_lib, "gpu": gpu}))
+        del library, lib_out
         # the solve bench.py:328-338 times (h = 10, 60 iterations, tol = 0):
         # the whole solve, then the kernel alone on its precomputed fields
         a, b = rand(shape, 1, 255), rand(shape, 1, 255)
@@ -536,122 +662,77 @@ def main() -> None:
                           "max_iter": 60, "tol": 0.0, "kernel_ms": k, "plain_ms": p,
                           "gpu": gpu}))
         fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
-        k, p = ab(lambda: liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, 0.0),
-                  lambda: liu_shen_iter.liu_shen_iterate_plain(10.0, fields, z, z, 60, 0.0))
-        kernel_times[("liu_shen", shape)] = (k, p)
-        print(json.dumps({"kernel": "liu_shen", "shape": list(shape), "h": 10.0, "max_iter": 60,
-                          "tol": 0.0, "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("liu_shen", shape,
+                    lambda: liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, 0.0),
+                    lambda: liu_shen_iter.liu_shen_iterate_plain(10.0, fields, z, z, 60, 0.0),
+                    REPS, 20, h=10.0, max_iter=60, tol=0.0)
         # the LK kernels at the calibrated config: half window 13, R = 5, 5 GN steps
-        reps = REPS if shape == (512, 512) else REPS_2048
         slab, g_pair, fields, runs_y, runs_x = lk_problem(lk_pair(shape))
-        k, p = ab(lambda: lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x),
-                  lambda: lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x),
-                  reps)
-        kernel_times[("lk_build", shape)] = (k, p)
-        print(json.dumps({"kernel": "lk_build", "shape": list(shape), "shifts": 121,
-                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("lk_build", shape,
+                    lambda: lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x),
+                    lambda: lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x),
+                    reps, 10 if small else 3, shifts=121)
         t1, t2 = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
-        k, p = ab(lambda: lk_iter.lk_gn_iterate(t1, t2, *fields, 5, 5, 13),
-                  lambda: lk_iter.lk_gn_iterate_plain(t1, t2, *fields, 5, 5, 13), reps)
-        kernel_times[("lk_gn", shape)] = (k, p)
-        print(json.dumps({"kernel": "lk_gn", "shape": list(shape), "n_iter": 5, "flow": "|d|<=4",
-                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("lk_gn", shape, lambda: lk_iter.lk_gn_iterate(t1, t2, *fields, 5, 5, 13),
+                    lambda: lk_iter.lk_gn_iterate_plain(t1, t2, *fields, 5, 5, 13), reps, 20,
+                    n_iter=5, flow="|d|<=4")
         del t1, t2
-        k, p = ab(lambda: lk_iter.lk_fused(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x),
-                  lambda: lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, 5, 13, runs_y,
-                                                 runs_x), reps)
-        kernel_times[("lk_fused", shape)] = (k, p)
-        print(json.dumps({"kernel": "lk_fused", "shape": list(shape), "n_iter": 5,
-                          "flow": "|d|<=4", "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("lk_fused", shape,
+                    lambda: lk_iter.lk_fused(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x),
+                    lambda: lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, 5, 13, runs_y,
+                                                   runs_x), reps, 3, n_iter=5, flow="|d|<=4")
         del slab, g_pair, fields
         # the Farneback kernels at the calibrated config: R = 5, window 33
         # Gaussian, 5 iterations for the fused loop
         r0, r1 = fb_expansions(shape)
         fx, fy = rand(shape, -4, 4), rand(shape, -4, 4)
-        k, p = ab(lambda: tent_sample.update_matrices(fx, fy, r0, r1),
-                  lambda: tent_sample.update_matrices_plain(fx, fy, r0, r1), reps)
-        kernel_times[("fb_update_matrices", shape)] = (k, p)
-        print(json.dumps({"kernel": "fb_update_matrices", "shape": list(shape), "R": 5,
-                          "flow": "|d|<=4", "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("fb_update_matrices", shape,
+                    lambda: tent_sample.update_matrices(fx, fy, r0, r1),
+                    lambda: tent_sample.update_matrices_plain(fx, fy, r0, r1), reps, 50, R=5,
+                    flow="|d|<=4")
         m = tent_sample.update_matrices(z, z, r0, r1)
         taps, mode, scale = windows["gaussian"]
-        k, p = ab(lambda: fb_blur.blur5_flow(m, taps, mode, scale),
-                  lambda: fb_blur.blur5_flow_plain(m, taps, mode, scale), reps)
-        kernel_times[("fb_blur5_flow", shape)] = (k, p)
-        print(json.dumps({"kernel": "fb_blur5_flow", "shape": list(shape), "window": "gaussian 33",
-                          "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
-        k, p = ab(lambda: fb_fused.fb_fused(r0, r1, z, z, 5, taps, mode, scale),
-                  lambda: fb_fused.fb_fused_plain(r0, r1, z, z, 5, taps, mode, scale), reps)
-        kernel_times[("fb_fused", shape)] = (k, p)
-        print(json.dumps({"kernel": "fb_fused", "shape": list(shape), "n_iters": 5,
-                          "window": "gaussian 33", "kernel_ms": k, "plain_ms": p, "gpu": gpu}))
+        time_kernel("fb_blur5_flow", shape, lambda: fb_blur.blur5_flow(m, taps, mode, scale),
+                    lambda: fb_blur.blur5_flow_plain(m, taps, mode, scale), reps, 50,
+                    window="gaussian 33")
+        time_kernel("fb_fused", shape,
+                    lambda: fb_fused.fb_fused(r0, r1, z, z, 5, taps, mode, scale),
+                    lambda: fb_fused.fb_fused_plain(r0, r1, z, z, 5, taps, mode, scale), reps, 10,
+                    n_iters=5, window="gaussian 33")
         del r0, r1, fx, fy, m
         torch.cuda.empty_cache()
     for name, w in wrappers.items():
         w.launches = saved_counts[name]
 
     # ---------------------------------------------------------------- result
-    kernels = [
-        {"name": "hs_jacobi", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/hs_jacobi.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/hs_iter.py:113",
-         "also_replaces": ["opticalflow_ri_tpu/ops/pallas/hs_tiled.py:164"],
-         "launches": launches["hs_jacobi"], "max_abs_err": err["hs_jacobi"],
-         "ms": kernel_times[("hs_jacobi", (512, 512))][0],
-         "plain_ms": kernel_times[("hs_jacobi", (512, 512))][1]},
-        {"name": "warp_pair", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/warp_pair.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/warp_tent.py:120",
-         "launches": launches["warp_pair"], "max_abs_err": err["warp_pair"],
-         "ms": kernel_times[("warp_pair", (512, 512))][0],
-         "plain_ms": kernel_times[("warp_pair", (512, 512))][1]},
-        {"name": "liu_shen", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/liu_shen.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/liu_shen_iter.py:108",
-         "also_replaces": ["opticalflow_ri_tpu/ops/pallas/ls_tiled.py:245"],
-         "launches": launches["liu_shen"], "max_abs_err": err["liu_shen"],
-         "ms": kernel_times[("liu_shen", (512, 512))][0],
-         "plain_ms": kernel_times[("liu_shen", (512, 512))][1]},
-        {"name": "lk_build", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/lk_build.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/lk_build.py:173",
-         "launches": launches["lk_build"], "max_abs_err": err["lk_build"],
-         "ms": kernel_times[("lk_build", (512, 512))][0],
-         "plain_ms": kernel_times[("lk_build", (512, 512))][1]},
-        {"name": "lk_gn", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/lk_iter.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/lk_iter.py:153",
-         "launches": launches["lk_gn"], "max_abs_err": err["lk_gn"],
-         "ms": kernel_times[("lk_gn", (512, 512))][0],
-         "plain_ms": kernel_times[("lk_gn", (512, 512))][1]},
-        {"name": "lk_fused", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/lk_iter.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/lk_iter.py:320",
-         "launches": launches["lk_fused"], "max_abs_err": err["lk_fused"],
-         "ms": kernel_times[("lk_fused", (512, 512))][0],
-         "plain_ms": kernel_times[("lk_fused", (512, 512))][1]},
-        {"name": "fb_update_matrices", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/fb_update_matrices.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/tent_sample.py:336",
-         "also_replaces": ["opticalflow_ri_tpu/ops/pallas/tent_sample.py:223",
-                           "opticalflow_ri_tpu/ops/pallas/tent_sample.py:531"],
-         "launches": launches["fb_update_matrices"], "max_abs_err": err["fb_update_matrices"],
-         "ms": kernel_times[("fb_update_matrices", (512, 512))][0],
-         "plain_ms": kernel_times[("fb_update_matrices", (512, 512))][1]},
-        {"name": "fb_blur5_flow", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/fb_blur5_flow.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/blur5_flow.py:124",
-         "also_replaces": ["opticalflow_ri_tpu/ops/pallas/blur5_flow.py:196"],
-         "launches": launches["fb_blur5_flow"], "max_abs_err": err["fb_blur5_flow"],
-         "ms": kernel_times[("fb_blur5_flow", (512, 512))][0],
-         "plain_ms": kernel_times[("fb_blur5_flow", (512, 512))][1]},
-        {"name": "fb_fused", "route": "cuda",
-         "source": "opticalflow_ri_tpu_torch/csrc/fb_fused.cu",
-         "replaces": "opticalflow_ri_tpu/ops/pallas/fb_fused2.py:163",
-         "launches": launches["fb_fused"], "max_abs_err": err["fb_fused"],
-         "ms": kernel_times[("fb_fused", (512, 512))][0],
-         "plain_ms": kernel_times[("fb_fused", (512, 512))][1]},
-    ]
+    # name: (source, the TPU kernel it replaces, the others it also replaces)
+    replaced = {
+        "hs_jacobi": ("hs_jacobi.cu", "hs_iter.py:113", ["hs_tiled.py:164"]),
+        "warp_pair": ("warp_pair.cu", "warp_tent.py:120", []),
+        "liu_shen": ("liu_shen.cu", "liu_shen_iter.py:108", ["ls_tiled.py:245"]),
+        "lk_build": ("lk_build.cu", "lk_build.py:173", []),
+        "lk_gn": ("lk_iter.cu", "lk_iter.py:153", []),
+        "lk_fused": ("lk_iter.cu", "lk_iter.py:320", []),
+        "fb_update_matrices": ("fb_update_matrices.cu", "tent_sample.py:336",
+                               ["tent_sample.py:223", "tent_sample.py:531"]),
+        "fb_blur5_flow": ("fb_blur5_flow.cu", "blur5_flow.py:124", ["blur5_flow.py:196"]),
+        "fb_fused": ("fb_fused.cu", "fb_fused2.py:163", []),
+    }
+    costs = kernel_costs(512, 512)
+    kernels = []
+    for name, (src, tpu, also) in replaced.items():
+        b, by = bound_ms(*costs[name])
+        kern = {"name": name, "route": "cuda", "source": f"opticalflow_ri_tpu_torch/csrc/{src}",
+                "replaces": f"opticalflow_ri_tpu/ops/pallas/{tpu}",
+                "launches": launches[name], "max_abs_err": err[name],
+                "ms": kernel_times[(name, (512, 512))][0],
+                "plain_ms": kernel_times[(name, (512, 512))][1],
+                "bound_ms": b, "bound_by": by,
+                "library_ms": library_times.get((name, (512, 512)))}
+        if also:
+            kern["also_replaces"] = [f"opticalflow_ri_tpu/ops/pallas/{t}" for t in also]
+        kern["device_ms"] = device_times[(name, (512, 512))]
+        kernels.append(kern)
     for kern in kernels:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was never launched by the main path")

@@ -17,6 +17,7 @@ stack over window offsets [-hw, 31-hw] (``models/lucas_kanade.py``).
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -36,7 +37,13 @@ TABLE_INTS = 1 + MAX_RUNS * RUN_INTS
 
 def run_table(runs) -> ctypes.Array:
     """The window's runs of ones as the LK kernels take them: each run's
-    start and length, the two-level base width and the ladder factors."""
+    start and length, the two-level base width and the ladder factors.
+    Built once per window; the table is never written."""
+    return _run_table(tuple((int(lo), int(hi)) for lo, hi in runs))
+
+
+@lru_cache(maxsize=None)
+def _run_table(runs: tuple) -> ctypes.Array:
     if not 1 <= len(runs) <= MAX_RUNS:
         raise ValueError(f"LK kernels take 1 to {MAX_RUNS} window runs, got {runs}")
     table = [len(runs)]
@@ -86,6 +93,15 @@ def lk_build_planes_plain(slab, g_pair, hw: int, R: int, runs_y, runs_x,
     return t1, t2
 
 
+@lru_cache(maxsize=None)
+def _entry():
+    entry = build.load_library().ofri_lk_build
+    entry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
+
+
 def lk_build_planes(slab, g_pair, hw: int, R: int, runs_y, runs_x):
     """Build the shift-plane stacks (t1, t2) in ladder order.
 
@@ -100,10 +116,7 @@ def lk_build_planes(slab, g_pair, hw: int, R: int, runs_y, runs_x):
     t1 = torch.empty((nshift * nshift, h, w), dtype=torch.float32, device=dev)
     t2 = torch.empty_like(t1)
     ty, tx = run_table(runs_y), run_table(runs_x)
-    entry = build.load_library().ofri_lk_build
-    entry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    entry = _entry()
     stream = torch.cuda.current_stream(dev).cuda_stream
     lk_build_planes.launches += 1
     rc = entry(slab.data_ptr(), g_pair.data_ptr(), t1.data_ptr(), t2.data_ptr(), h, w, int(R),

@@ -8,10 +8,12 @@ file does not use tests/conftest.py (which imports jax); run it there with
 
 Built with -fmad=false, every kernel's flow equals its plain version's bit
 for bit; the Liu-Shen error, reduced in another order, agrees to 1e-5
-relative, and the Liu-Shen stop comes at the same iteration.  The dense-LK
-kernels are held to their bars (the LK build to rtol 1e-6, the GN loop and
-the fused build+GN to 1.2e-4 on the window origins with status equal); all
-three are expected to be bit-identical.  The three Farneback kernels
+relative, and the Liu-Shen stop comes at the same iteration.  The HS kernel
+is held at every niter mod T (its iterations per launch) and at several T.
+The LK build equals its plain version bit for bit, with the symmetric, the
+asymmetric and a four-run window; the GN loop and the fused build+GN are
+held to 1.2e-4 on the window origins with status equal, and are expected to
+be bit-identical.  The three Farneback kernels
 (updateMatrices, window blur + solve, the fused loop) equal their plain
 versions bit for bit.
 """
@@ -48,17 +50,40 @@ def _rand(rng, shape, lo, hi, dev):
     return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517), (512, 512)])
-@pytest.mark.parametrize("niter", [0, 1, 2, 45])
-def test_hs_kernel_equals_plain(dev, shape, niter):
-    rng = np.random.default_rng(0)
+T = hs_iter.STEPS_PER_LAUNCH
+HS_NITERS = [0, 1, T - 1, T, T + 1, 45, 600]
+HS_CASES = ([(shape, n) for shape in [(2, 2), (3, 517), (47, 61), (333, 517), (512, 512)]
+             for n in HS_NITERS] + [((2048, 2048), n) for n in (0, 1, T + 1)])
+
+
+def _hs_inputs(dev, shape, seed=0):
+    rng = np.random.default_rng(seed)
     fx, fy, ft = hs_derivatives(_rand(rng, shape, 0, 255, dev), _rand(rng, shape, 0, 255, dev))
-    u0, v0 = _rand(rng, shape, -2, 2, dev), _rand(rng, shape, -2, 2, dev)
+    return fx, fy, ft, _rand(rng, shape, -2, 2, dev), _rand(rng, shape, -2, 2, dev)
+
+
+@pytest.mark.parametrize("shape,niter", HS_CASES, ids=[f"{s[0]}x{s[1]}-{n}" for s, n in HS_CASES])
+def test_hs_kernel_equals_plain(dev, shape, niter):
+    """Every niter mod T (the launches' block depth), 600 as the PyHSchunck
+    configs run it, and shapes smaller than the halo."""
+    fx, fy, ft, u0, v0 = _hs_inputs(dev, shape)
     before = hs_iter.hs_iterate.launches
     got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter)
     want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter)
     torch.cuda.synchronize()
     assert hs_iter.hs_iterate.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("steps", [1, 3, 16, hs_iter.MAX_STEPS_PER_LAUNCH])
+@pytest.mark.parametrize("shape", [(2, 2), (333, 517)])
+def test_hs_kernel_block_depths_equal_plain(dev, steps, shape, monkeypatch):
+    fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=1)
+    monkeypatch.setattr(hs_iter, "STEPS_PER_LAUNCH", steps)
+    got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, 45)
+    want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, 45)
+    torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -179,10 +204,20 @@ def _lk_problem(dev, shape, asym=(0, 0, 0, 0), dmax=4.0, seed=4):
                             asym=asym)
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
-@pytest.mark.parametrize("asym", ASYMS)
-def test_lk_build_kernel_equals_plain(dev, shape, asym):
+# four runs (the most a run table holds), lengths 4, 6, 15 and 4 in y and
+# 27, 1, 2 and 2 in x: every ladder form, from no stage to three
+FOUR_RUNS_Y = ((0, 3), (5, 10), (12, 26), (28, 31))
+FOUR_RUNS_X = ((0, 26), (27, 27), (28, 29), (30, 31))
+LK_BUILD_WINDOWS = ASYMS + ["four_runs"]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517), (512, 512)])
+@pytest.mark.parametrize("window", LK_BUILD_WINDOWS, ids=str)
+def test_lk_build_kernel_equals_plain(dev, shape, window):
+    asym = window if window != "four_runs" else (0, 0, 0, 0)
     slab, g_pair, _, runs_y, runs_x = _lk_problem(dev, shape, asym)
+    if window == "four_runs":
+        runs_y, runs_x = FOUR_RUNS_Y, FOUR_RUNS_X
     before = lk_build.lk_build_planes.launches
     got = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
     want = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
@@ -190,7 +225,7 @@ def test_lk_build_kernel_equals_plain(dev, shape, asym):
     assert lk_build.lk_build_planes.launches == before + 1
     for g, w in zip(got, want):
         assert g.shape == (121, *shape)
-        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        assert torch.equal(g, w)
 
 
 def _lk_check(got, want):
