@@ -15,22 +15,26 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                2048^2, bit for bit, at 0, 1, T-1, T, T+1, 100 and 600
                iterations, T its iterations per launch; the pair
                warp at 512^2 and 333x517 on calibrated and wild flows; the
-               Liu-Shen solve at 512^2, 333x517 and 2048^2, for a fixed count
-               and for an early stop; the LK build at 512^2, 333x517 and
+               Liu-Shen solve at 2x2, 3x517, 47x61, 333x517, 512^2 and
+               2048^2, bit for bit with k equal, at 0, 1, T, T+1 and 60
+               steps and for stops at k = 0, 1 and T-1 mod T, T its steps
+               per launch; the LK build at 512^2, 333x517 and
                2048^2, bit for bit, with the symmetric and an asymmetric
                window, and a four-run window at 512^2; the GN loop at those
                shapes on calibrated and wild flows;
                the fused LK build+GN at 512^2 and 333x517; the Farneback
                updateMatrices at 512^2, 333x517 and 2048^2 on calibrated
                and wild flows, and the exact gather at 512^2; the Farneback
-               window blur + solve at those shapes in both window modes; the
+               window blur + solve bit for bit at the Liu-Shen shapes, 1, 3,
+               33 and 129 taps, both window modes and a post-scale; the
                fused Farneback loop at 512^2 and 333x517 in both modes);
   4. main    — the five HS configurations, the README's wrapper call, the
                four Liu-Shen configurations, the five dense-LK ones, the
                fused LK solve (``lk_dense_solve(impl="fused")``), the five
                Farneback ones and the fused Farneback loop (``fb_fused`` on
                the level-0 expansions, held against ``farneback_solve``) on
-               a 512^2 synthetic pair, launch counters reset just before;
+               a 512^2 synthetic pair, launch counters reset just before,
+               each Liu-Shen call's k printed;
                flows held against the port's plain path on the CPU (AEE <=
                5e-6) and the 96^2 golden flows of HS, HS + Liu-Shen (AEE <
                1e-3), LK (the bulk check of tests/test_golden.py) and
@@ -38,10 +42,10 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
   5. times   — CUDA-event medians, kernel path against plain PyTorch on the
                card, per configuration and per kernel at 512^2 and 2048^2;
                the device time per call (a CUDA graph replayed back to
-               back; at 2048^2 for the HS and LK-build kernels) beside the
-               bound;
+               back; at 2048^2 for the HS, Liu-Shen, LK-build and FB blur
+               kernels) beside the bound;
                for the pair warp also one ``F.grid_sample`` call, its
-               library yardstick.
+               library yardstick, by event and by graph replay.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -59,6 +63,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -66,7 +71,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.join(ROOT, "opticalflow_ri_tpu_torch")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "synthetic96_flows.npz")
 
-LS_BAR = 1e-5          # absolute on u, v; relative on err
+LS_ERR_BAR = 1e-5      # relative on the Liu-Shen err (u, v bitwise, k equal)
 WARP_BAR_REL = 1e-5    # relative to the image's range
 LK_BAR = 1.2e-4        # absolute on the LK window origins (ROADMAP's LK bar); status equal
 AEE_BAR = 5e-6         # card against the CPU plain path, whole pipeline
@@ -153,6 +158,7 @@ def main() -> None:
         LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow,
     )
     from opticalflow_ri_tpu_torch.configs import run_config
+    from opticalflow_ri_tpu_torch.models import liu_shen as ls_model
     from opticalflow_ri_tpu_torch.models.farneback import (
         _level_plan, _window_blur_spec, farneback_solve, gaussian_blur, poly_expansion,
     )
@@ -238,29 +244,36 @@ def main() -> None:
         a, b = rand(shape, 1, 255), rand(shape, 1, 255)
         return liu_shen_precompute(a / a.max(), b / b.max(), h)
 
-    def stop_tol(fields, u0, v0, h=10.0, max_iter=60):
-        """A tol that stops the plain solve after k < max_iter iterations, the
-        errors of iterations k-1 and k each at least 1% away from it."""
+    def stop_tol(fields, u0, v0, residue, steps, h=10.0, max_iter=60):
+        """(k, tol): a tol that stops the plain solve after k < max_iter
+        steps, k = residue mod ``steps``, the errs of steps k-1 and k each at
+        least 0.1% away from it."""
         errs, u, v = [], u0, v0
         for _ in range(max_iter):
             un, vn = liu_shen_iteration(u, v, fields, h)
             errs.append(float((torch.linalg.norm(un - u) + torch.linalg.norm(vn - v))
                               / float(u.numel())))
             u, v = un, vn
-        found = []
         for k in range(2, max_iter):
             tol = float(np.sqrt(errs[k - 2] * errs[k - 1]))
-            if errs[k - 1] < 0.99 * tol and min(errs[:k - 1]) > 1.01 * tol:
-                found.append((abs(k - max_iter // 2), k, tol))
-        if not found:
-            raise AssertionError(f"no early-stop tolerance found in {errs}")
-        return min(found)[1:]
+            if (k % steps == residue and errs[k - 1] < 0.999 * tol
+                    and min(errs[:k - 1]) > 1.001 * tol):
+                return k, tol
+        raise AssertionError(f"no tol stops at k = {residue} mod {steps} in {errs}")
 
-    for shape in [(512, 512), (333, 517), (2048, 2048)]:
+    # the Liu-Shen kernel runs T steps a launch: counts around that depth,
+    # 60 as the configs run it, and stops at the last, the first and the
+    # next-to-last step of a launch (the last two replayed)
+    ls_steps = liu_shen_iter.STEPS_PER_LAUNCH
+    shapes = [(2, 2), (3, 517), (47, 61), (333, 517), (512, 512), (2048, 2048)]
+    for shape in shapes:
         fields = ls_fields(shape)
         u0, v0 = rand(shape, -0.5, 0.5), rand(shape, -0.5, 0.5)
-        k_want, stop = stop_tol(fields, u0, v0)
-        for label, max_iter, tol in (("fixed", 60, 0.0), ("early-stop", 60, stop)):
+        cases = [(f"fixed {n}", n, 0.0, n) for n in (0, 1, ls_steps, ls_steps + 1, 60)]
+        for residue in (0, 1, ls_steps - 1):
+            k_want, tol = stop_tol(fields, u0, v0, residue, ls_steps)
+            cases.append((f"stop at k={k_want} (mod T: {residue})", 60, tol, k_want))
+        for label, max_iter, tol, k_want in cases:
             got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, max_iter, tol)
             want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, max_iter, tol)
             torch.cuda.synchronize()
@@ -268,15 +281,17 @@ def main() -> None:
             same = all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))
             kg, kw = int(got[3]), int(want[3])
             eg, ew = float(got[2]), float(want[2])
-            e_rel = abs(eg - ew) / ew
-            print(f"liu_shen {shape} {label} max_iter={max_iter} tol={tol!r}: "
-                  f"max|d|={d!r} (bar {LS_BAR}) bitwise={same} k={kg} plain k={kw} "
-                  f"err={eg!r} plain err={ew!r} (rel {e_rel!r}, bar {LS_BAR})")
-            if label == "early-stop" and kw != k_want:
+            e_rel = abs(eg - ew) / ew if ew else abs(eg)
+            print(f"liu_shen {shape} {label} max_iter={max_iter} tol={tol!r} (T={ls_steps}): "
+                  f"max|d|={d!r} (bar: bitwise) bitwise={same} k={kg} plain k={kw} "
+                  f"err={eg!r} plain err={ew!r} (rel {e_rel!r}, bar {LS_ERR_BAR})")
+            if kw != k_want:
                 raise AssertionError(f"liu_shen plain stopped at {kw}, expected {k_want}")
-            if not (kg == kw and d <= LS_BAR and e_rel <= LS_BAR):
+            if not (kg == kw and same and e_rel <= LS_ERR_BAR):
                 raise AssertionError(f"liu_shen disagrees with its plain version at {shape}")
             err["liu_shen"] = max(err["liu_shen"], d)
+        del fields
+        torch.cuda.empty_cache()
 
     def lk_pair(shape):
         """A random frame and its rolled, noisy copy, on the card."""
@@ -374,19 +389,39 @@ def main() -> None:
             torch.cuda.synchronize()
             fb_compare("fb_update_matrices", f"{shape} R={R} {label} |d|<={dmax}", [got], [want],
                        FB_M_BAR * float(want.abs().max()))
-        z = torch.zeros(shape, dtype=torch.float32, device=dev)
-        m = tent_sample.update_matrices_plain(z, z, r0, r1)
-        for wname, (taps, mode, scale) in windows.items():
-            got = fb_blur.blur5_flow(m, taps, mode, scale)
-            want = fb_blur.blur5_flow_plain(m, taps, mode, scale)
-            torch.cuda.synchronize()
-            fb_compare("fb_blur5_flow", f"{shape} {wname} 33 taps", got, want, FB_FLOW_BAR)
-            if shape != (2048, 2048):
+        if shape != (2048, 2048):
+            for wname, (taps, mode, scale) in windows.items():
                 fx0, fy0 = rand(shape, -1, 1), rand(shape, -1, 1)
                 got = fb_fused.fb_fused(r0, r1, fx0, fy0, 5, taps, mode, scale)
                 want = fb_fused.fb_fused_plain(r0, r1, fx0, fy0, 5, taps, mode, scale)
                 torch.cuda.synchronize()
                 fb_compare("fb_fused", f"{shape} {wname} n_iters=5", got, want, FB_FLOW_BAR)
+        del r0, r1, got, want
+        torch.cuda.empty_cache()
+
+    # the blur + solve: every tap count the kernel's register blocking treats
+    # apart, the Gaussian ("mirror"), the box ("nearest", scale 1/n^2) and a
+    # post-scaled Gaussian, on the M of a particle pair at zero flow
+    for shape in shapes:
+        big = (max(shape[0], 16), max(shape[1], 16))
+        r0, r1 = (r[:, :shape[0], :shape[1]].contiguous() for r in fb_expansions(big))
+        z = torch.zeros(shape, dtype=torch.float32, device=dev)
+        m = tent_sample.update_matrices_plain(z, z, r0, r1)
+        for n in (1, 3, 33, 129):
+            for wname in ("gaussian", "box", "gaussian-scaled"):
+                taps, mode, scale = _window_blur_spec(n, wname != "box")
+                scale = 0.37 if wname == "gaussian-scaled" else scale
+                got = fb_blur.blur5_flow(m, taps, mode, scale)
+                want = fb_blur.blur5_flow_plain(m, taps, mode, scale)
+                torch.cuda.synchronize()
+                d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                print(f"fb_blur5_flow {shape} {wname} {n} taps ({mode}, scale {scale!r}): "
+                      f"max|d|={d!r} (bar: bitwise) bitwise={same}")
+                if not same:
+                    raise AssertionError(f"fb_blur5_flow disagrees with its plain version "
+                                         f"at {shape}, {n} taps, {wname}")
+                err["fb_blur5_flow"] = max(err["fb_blur5_flow"], d)
         del r0, r1, m, got, want
         torch.cuda.empty_cache()
 
@@ -459,16 +494,36 @@ def main() -> None:
             want.add("warp_pair")
         return want
 
+    # each Liu-Shen call's k: the solver's handle on the kernel module is
+    # swapped, for the main-path runs only, for one whose wrapper keeps k (a
+    # device tensor, no sync); the wrapper and its count are the kernel's own
+    ls_k = []
+
+    def ls_recording(*args):
+        out = liu_shen_iter.liu_shen_iterate(*args)
+        ls_k.append((out[3], args[4]))
+        return out
+
     for fn in wrappers.values():
         fn.launches = 0
-    flows, counts = {}, {}
-    for name, fn in runs.items():
-        before = {k: w.launches for k, w in wrappers.items()}
-        flows[name] = fn(g1, g2)
-        counts[name] = {k: w.launches - before[k] for k, w in wrappers.items()}
+    flows, counts, ls_ks = {}, {}, {}
+    ls_model.liu_shen_iter = types.SimpleNamespace(liu_shen_iterate=ls_recording)
+    try:
+        for name, fn in runs.items():
+            before = {k: w.launches for k, w in wrappers.items()}
+            del ls_k[:]
+            flows[name] = fn(g1, g2)
+            counts[name] = {k: w.launches - before[k] for k, w in wrappers.items()}
+            ls_ks[name] = list(ls_k)
+    finally:
+        ls_model.liu_shen_iter = liu_shen_iter
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"main-path launches: {launches}")
+    for name, calls in ls_ks.items():
+        if calls:
+            print(f"{name}: Liu-Shen k per call (of max_iter) "
+                  f"{[f'{int(k)}/{m}' for k, m in calls]}")
 
     for name, (u, v) in flows.items():
         if u.device != dev or u.shape != (512, 512) or u.dtype != torch.float32:
@@ -617,16 +672,17 @@ def main() -> None:
         print(json.dumps({"config": name, "shape": [512, 512], "kernel_ms": k, "plain_ms": p,
                           "gpu": gpu}))
 
-    kernel_times, device_times, library_times = {}, {}, {}
+    kernel_times, device_times, library_times, library_device_times = {}, {}, {}, {}
 
     def time_kernel(name, shape, kernel_fn, plain_fn, reps, replays, **info):
         """Event medians of kernel and plain in turns; the device time per
-        call from graph replays (every kernel at 512^2, the redesigned HS
-        and LK-build kernels at 2048^2 too); the bound of the call."""
+        call from graph replays (every kernel at 512^2, the redesigned HS,
+        Liu-Shen, LK-build and FB blur kernels at 2048^2 too); the bound of
+        the call."""
         k, p = ab(kernel_fn, plain_fn, reps)
         kernel_times[(name, shape)] = (k, p)
         rec = {"kernel": name, "shape": list(shape), **info, "kernel_ms": k, "plain_ms": p}
-        if shape == (512, 512) or name in ("hs_jacobi", "lk_build"):
+        if shape == (512, 512) or name in ("hs_jacobi", "liu_shen", "lk_build", "fb_blur5_flow"):
             device_times[(name, shape)] = rec["device_ms"] = device_ms(kernel_fn, replays)
         rec["bound_ms"], rec["bound_by"] = bound_ms(*kernel_costs(*shape)[name])
         print(json.dumps({**rec, "gpu": gpu}))
@@ -649,8 +705,9 @@ def main() -> None:
                     for i, o in enumerate(warp_tent.warp_pair(*args)))
         library_times[("warp_pair", shape)] = lib = statistics.median(
             event_ms(library) for _ in range(REPS))
+        library_device_times[("warp_pair", shape)] = lib_dev = device_ms(library, 50)
         print(json.dumps({"library": "F.grid_sample, batch of 2", "yardstick_of": "warp_pair",
-                          "shape": list(shape), "library_ms": lib,
+                          "shape": list(shape), "library_ms": lib, "library_device_ms": lib_dev,
                           "max_abs_diff_to_kernel": d_lib, "gpu": gpu}))
         del library, lib_out
         # the solve bench.py:328-338 times (h = 10, 60 iterations, tol = 0):
@@ -665,7 +722,8 @@ def main() -> None:
         time_kernel("liu_shen", shape,
                     lambda: liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, 0.0),
                     lambda: liu_shen_iter.liu_shen_iterate_plain(10.0, fields, z, z, 60, 0.0),
-                    REPS, 20, h=10.0, max_iter=60, tol=0.0)
+                    REPS, 20, h=10.0, max_iter=60, tol=0.0,
+                    steps_per_launch=liu_shen_iter.STEPS_PER_LAUNCH)
         # the LK kernels at the calibrated config: half window 13, R = 5, 5 GN steps
         slab, g_pair, fields, runs_y, runs_x = lk_problem(lk_pair(shape))
         time_kernel("lk_build", shape,
@@ -732,6 +790,8 @@ def main() -> None:
         if also:
             kern["also_replaces"] = [f"opticalflow_ri_tpu/ops/pallas/{t}" for t in also]
         kern["device_ms"] = device_times[(name, (512, 512))]
+        if (name, (512, 512)) in library_device_times:
+            kern["library_device_ms"] = library_device_times[(name, (512, 512))]
         kernels.append(kern)
     for kern in kernels:
         if kern["launches"] < 1:

@@ -17,6 +17,7 @@ replicate, the box), ``scale`` the post-scale (1.0: none).  All return
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from opticalflow_ri_tpu_torch.ops.stencil import correlate1d
 
 MAX_TAPS = 129  # csrc/fb_common.cuh: kMaxTaps
 MODES = {"mirror": 0, "nearest": 1}
+OUTPUTS_PER_THREAD = 8  # csrc/fb_blur5_flow.cu: kR, the register blocking of each pass
 
 
 def check_window(taps, mode: str):
@@ -38,6 +40,16 @@ def check_window(taps, mode: str):
     if mode not in MODES:
         raise ValueError(f"window blur mode must be one of {tuple(MODES)}, got {mode!r}")
     return k, MODES[mode]
+
+
+@lru_cache(maxsize=None)
+def _entry():
+    entry = build.load_library().ofri_fb_blur5_flow
+    entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def update_flow(m):
@@ -61,7 +73,7 @@ def blur5_flow(m, taps, mode: str, scale: float = 1.0):
     """Window-blur M and solve for the flow; returns (flowx, flowy).
 
     CPU tensors run ``blur5_flow_plain``; CUDA tensors launch the kernel,
-    one 256-thread block per 32x32 tile.
+    one 640-thread block per 32x64 tile, a group of 128 threads per plane.
     """
     if m.device.type == "cpu":
         return blur5_flow_plain(m, taps, mode, scale)
@@ -78,11 +90,7 @@ def blur5_flow(m, taps, mode: str, scale: float = 1.0):
     fx = torch.empty((h, w), dtype=torch.float32, device=dev)
     fy = torch.empty_like(fx)
     table = (ctypes.c_float * k.size)(*k.tolist())
-    entry = build.load_library().ofri_fb_blur5_flow
-    entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    entry = _entry()
     stream = torch.cuda.current_stream(dev).cuda_stream
     blur5_flow.launches += 1
     rc = entry(m.data_ptr(), fx.data_ptr(), fy.data_ptr(), h, w,

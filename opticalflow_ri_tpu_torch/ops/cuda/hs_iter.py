@@ -49,7 +49,7 @@ def launch_plan(niter: int, steps: int) -> tuple:
 
 
 @lru_cache(maxsize=None)
-def _plan_table(plan: tuple) -> ctypes.Array:
+def plan_table(plan: tuple) -> ctypes.Array:
     """``plan`` flattened to the kernel's int table."""
     return (ctypes.c_int * max(1, 2 * len(plan)))(*(x for pair in plan for x in pair))
 
@@ -88,7 +88,7 @@ def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int):
     build.check_fields("hs_iterate", fx, fy, ft, u0, v0)
     steps = STEPS_PER_LAUNCH
     plan = launch_plan(int(niter), steps)
-    table = _plan_table(plan)
+    table = plan_table(plan)
     h, w = fx.shape
     u_out, v_out = (torch.empty((h, w), dtype=torch.float32, device=fx.device) for _ in range(2))
     u_tmp, v_tmp = ((torch.empty((h, w), dtype=torch.float32, device=fx.device)

@@ -2,11 +2,15 @@
 
 ``liu_shen_iterate`` replaces both TPU kernels of the JAX package,
 ``ops/pallas/liu_shen_iter.py:liu_shen_iterate_pallas`` and
-``ops/pallas/ls_tiled.py:liu_shen_iterate_pallas_tiled``, with one CUDA kernel
-(``csrc/liu_shen.cu``) for any H, W >= 2.  It stops exactly as the XLA while
-loop does (``models/liu_shen.py:181-196``): while err > tol and k < max_iter,
-err checked after every iteration, with no host synchronisation inside the
-solve.
+``ops/pallas/ls_tiled.py:liu_shen_iterate_pallas_tiled``, with one temporally
+blocked CUDA kernel (``csrc/liu_shen.cu``) for any H, W >= 2: each launch runs
+up to ``STEPS_PER_LAUNCH`` steps on a tile, and ``launch_plan`` splits a solve
+into those launches.  It stops exactly as the XLA while loop does
+(``models/liu_shen.py:181-196``): while err > tol and k < max_iter, err checked
+after every step, with no host synchronisation inside the solve.  A stop
+inside a launch is replayed from that launch's untouched source into its
+destination (``stop_buffers``), so the result is the state of the step that
+stopped.
 
 ``liu_shen_iterate_plain`` is the same loop in PyTorch, one ``float(err)``
 host read per iteration; CPU tensors take it.  The per-iteration update
@@ -22,18 +26,58 @@ no iteration ran; k int32).
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from opticalflow_ri_tpu_torch.ops.cuda import build
+from opticalflow_ri_tpu_torch.ops.cuda import build, hs_iter
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
 )
+
+# Steps per launch (the temporal block depth T of csrc/liu_shen.cu), set by
+# measurement on the H100 (PERF.md: T = 4, 6, 8, 12 and 15 measured); the
+# kernel takes 1..15.
+STEPS_PER_LAUNCH = 6
+MAX_STEPS_PER_LAUNCH = 15
+OUT, TMP, IN = 0, 1, 2  # the kernel's buffers: output pair, scratch pair, (u0, v0)
+
+
+def launch_plan(max_iter: int, steps: int) -> tuple:
+    """The launches of a solve of at most ``max_iter`` steps: (steps,
+    destination) pairs, ``steps`` each and the remainder last, the
+    destinations alternating between ``TMP`` and ``OUT`` so that the last
+    launch writes ``OUT`` (``hs_iter.launch_plan``'s rule).  Launches after
+    the stop return at once.  Empty for ``max_iter <= 0``."""
+    if not 1 <= steps <= MAX_STEPS_PER_LAUNCH:
+        raise ValueError(f"steps per launch must be 1..{MAX_STEPS_PER_LAUNCH}, got {steps}")
+    return hs_iter.launch_plan(max_iter, steps)
+
+
+def stop_buffers(plan: tuple, j: int) -> tuple:
+    """(source, destination) of launch ``j`` of ``plan``: where the replay
+    reads and writes when the stop falls inside that launch.  The source is
+    ``IN`` for the first launch, else the previous launch's destination, which
+    launch ``j`` leaves untouched."""
+    return (IN if j == 0 else plan[j - 1][1]), plan[j][1]
+
+
+@lru_cache(maxsize=None)
+def _entries():
+    lib = build.load_library()
+    size = lib.ofri_liu_shen_workspace_bytes
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_size_t
+    entry = lib.ofri_liu_shen_iterate
+    entry.argtypes = _ARGTYPES
+    entry.restype = ctypes.c_int
+    return size, entry
 
 
 def ls_field_stencils(zp, out_h: int, out_w: int):
@@ -97,36 +141,35 @@ def liu_shen_iterate(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8):
     (iix, iiy, ii, ixt, iyt, b11, b12, b22); returns (u, v, err, k).
 
     CPU tensors run ``liu_shen_iterate_plain``; CUDA tensors launch the
-    kernel: one C call enqueues the whole solve (an init launch, ``max_iter``
-    step launches that return at once after the stop, a finish launch).
+    kernel: one C call enqueues the whole solve (an init launch, the step
+    launches of ``launch_plan``, which return at once after the stop, the
+    replay launch and a finish launch).
     """
     if fields[0].device.type == "cpu":
         return liu_shen_iterate_plain(h, fields, u0, v0, max_iter, tol)
     build.check_fields("liu_shen_iterate", *fields, u0, v0)
     rows, cols = u0.shape
     dev = u0.device
+    steps = STEPS_PER_LAUNCH
+    plan = launch_plan(int(max_iter), steps)
+    table = hs_iter.plan_table(plan)
     # the scratch pair and the workspace are freed on return while the
     # kernels may still run: the caching allocator hands them out again only
     # to later work on this stream, which runs after them
-
-    u_out, v_out, u_tmp, v_tmp = (torch.empty((rows, cols), dtype=torch.float32, device=dev)
-                                  for _ in range(4))
+    u_out, v_out = (torch.empty((rows, cols), dtype=torch.float32, device=dev) for _ in range(2))
+    u_tmp, v_tmp = ((torch.empty((rows, cols), dtype=torch.float32, device=dev)
+                     for _ in range(2)) if len(plan) > 1 else (u_out, v_out))
     err = torch.empty((), dtype=torch.float32, device=dev)
     k = torch.empty((), dtype=torch.int32, device=dev)
-    lib = build.load_library()
-    lib.ofri_liu_shen_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.ofri_liu_shen_workspace_bytes.restype = ctypes.c_size_t
-    workspace = torch.empty(lib.ofri_liu_shen_workspace_bytes(rows, cols), dtype=torch.uint8,
-                            device=dev)
-    entry = lib.ofri_liu_shen_iterate
-    entry.argtypes = _ARGTYPES
-    entry.restype = ctypes.c_int
+    size, entry = _entries()
+    workspace = torch.empty(size(rows, cols, steps), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     liu_shen_iterate.launches += 1
     rc = entry(*(f.data_ptr() for f in fields), float(np.float32(h)), u0.data_ptr(),
-               v0.data_ptr(), int(max_iter), float(np.float32(tol)), rows, cols,
-               u_out.data_ptr(), v_out.data_ptr(), u_tmp.data_ptr(), v_tmp.data_ptr(),
-               err.data_ptr(), k.data_ptr(), workspace.data_ptr(), dev.index or 0, stream)
+               v0.data_ptr(), int(max_iter), float(np.float32(tol)), rows, cols, steps,
+               ctypes.cast(table, ctypes.c_void_p), len(plan), u_out.data_ptr(),
+               v_out.data_ptr(), u_tmp.data_ptr(), v_tmp.data_ptr(), err.data_ptr(),
+               k.data_ptr(), workspace.data_ptr(), dev.index or 0, stream)
     build.check(rc, "liu_shen_iterate")
     return u_out, v_out, err, k
 

@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""Time the port's HS Jacobi kernel (K1/K2) and LK plane build (K6) on one GPU.
+"""Time the port's HS Jacobi (K1/K2), Liu-Shen solve (K4/K5), LK plane build
+(K6) and Farneback window blur + solve (K12/K13) kernels on one GPU.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--shapes 512 2048]
-        [--hs-steps 4 8 16] [--hs-niters 100] [--configs NAME ...] [--reps 15]
+        [--hs-steps 4 8 16] [--hs-niters 100] [--ls-steps 4 8 12]
+        [--skip hs ls lk fb] [--configs NAME ...] [--reps 15]
 
 For each square shape: HS (alpha 21, random derivatives of two uniform
-frames, zero flow) and the LK build at half window 13, R = 5 (121 shifts,
-the symmetric window) on a rolled noisy random pair.  Per kernel call it
-prints one JSON line with
+frames, zero flow); Liu-Shen (h = 10, fields of two uniform frames, zero
+flow, 60 steps) with tol = 0 and with a tol that stops the plain solve near
+step 30; the LK build at half window 13, R = 5 (121 shifts, the symmetric
+window) on a rolled noisy random pair; the FB blur + solve at 33 taps, the
+Gaussian ("mirror") and the box ("nearest", post-scale 1/33^2) window, on
+the M of a particle pair at zero flow.  Per kernel call it prints one JSON
+line with
   * ``event_ms``: median of CUDA-event intervals around one synchronised call,
     the kernel and its plain PyTorch version in alternating turns, as
     ``chip_smoke.py`` times them;
@@ -17,10 +23,12 @@ prints one JSON line with
   * ``host_ms``: the host's time to enqueue one call (wall clock, no sync);
   * ``bound_ms``: ``chip_smoke.bound_ms`` of ``chip_smoke.kernel_costs``.
 ``--hs-niters`` sets the HS iteration counts (default 100); ``--hs-steps``
-repeats the HS kernel at those iterations per launch (``hs_iter.
-STEPS_PER_LAUNCH``; a tree without it is timed at its own design).
+and ``--ls-steps`` repeat the HS and Liu-Shen kernels at those steps per
+launch (``hs_iter.STEPS_PER_LAUNCH``, ``liu_shen_iter.STEPS_PER_LAUNCH``; a
+tree without it is timed at its own design).
 ``--configs`` also times those configs end to end (``run_config`` on the
-512^2 synthetic pair, median event interval).  ``--root`` imports the
+512^2 synthetic pair, one call of each per turn: median and quartiles of the
+event intervals, and the host's enqueue time per call).  ``--root`` imports the
 package from another checkout, so that two trees can be compared in one
 machine session, one process each.  Needs a GPU; the last line is the
 card's name and power limit.
@@ -48,7 +56,8 @@ def main() -> None:
     ap.add_argument("--hs-steps", type=int, nargs="*", default=[])
     ap.add_argument("--hs-niters", type=int, nargs="+", default=[100])
     ap.add_argument("--reps", type=int, default=15)
-    ap.add_argument("--skip", nargs="*", default=[], choices=["hs", "lk"])
+    ap.add_argument("--ls-steps", type=int, nargs="*", default=[])
+    ap.add_argument("--skip", nargs="*", default=[], choices=["hs", "ls", "lk", "fb"])
     ap.add_argument("--configs", nargs="*", default=[],
                     help="also time these configs end to end on the 512^2 pair")
     args = ap.parse_args()
@@ -59,9 +68,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_times: needs a GPU")
     sys.path.insert(0, os.path.abspath(args.root))  # ahead of HERE
-    from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
-    from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, lk_build
     from opticalflow_ri_tpu_torch.configs import run_config
+    from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_expansion
+    from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
+    from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
+    from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build
+    from opticalflow_ri_tpu_torch.ops.cuda import tent_sample
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -126,11 +138,19 @@ def main() -> None:
 
     im1, im2, _, _ = particle_image_pair(shape=(512, 512), seed=0)
     g1, g2 = torch.as_tensor(im1, device=dev), torch.as_tensor(im2, device=dev)
-    for name in args.configs:
-        run_config(name, g1, g2)
-        emit(config=name, shape=[512, 512],
-             event_ms=statistics.median(event_ms(lambda: run_config(name, g1, g2))
-                                        for _ in range(args.reps)))
+    # configs in turns, one call of each per turn: event interval median and
+    # quartiles, and the host's enqueue time per call
+    runs = {name: (lambda name=name: run_config(name, g1, g2)) for name in args.configs}
+    events = {name: [] for name in runs}
+    for fn in runs.values():
+        fn()
+    for _ in range(args.reps):
+        for name, fn in runs.items():
+            events[name].append(event_ms(fn))
+    for name, fn in runs.items():
+        q1, med, q3 = statistics.quantiles(events[name], n=4)
+        emit(config=name, shape=[512, 512], event_ms=med, event_q1_ms=q1, event_q3_ms=q3,
+             host_ms=host_ms(fn, args.reps))
 
     for n in args.shapes:
         shape = (n, n)
@@ -158,6 +178,44 @@ def main() -> None:
                          bound_ms=b, bound_by=by)
             hs_iter.STEPS_PER_LAUNCH = design
             del fx, fy, ft, z
+        if "ls" not in args.skip:
+            a, b = rand(shape, 1, 255), rand(shape, 1, 255)
+            fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
+            z = torch.zeros(shape, device=dev)
+            # a tol between the errs of the plain solve's steps near 30
+            errs, u, v = [], z, z
+            for _ in range(60):
+                un, vn = liu_shen_iter.liu_shen_iteration(u, v, fields, 10.0)
+                errs.append(float((torch.linalg.norm(un - u) + torch.linalg.norm(vn - v))
+                                  / u.numel()))
+                u, v = un, vn
+            k_stop = min(range(2, 60), key=lambda k: (
+                not (errs[k - 1] < errs[k - 2] * 0.99 and min(errs[:k - 1]) == errs[k - 2]),
+                abs(k - 30)))
+            stop = float(np.sqrt(errs[k_stop - 2] * errs[k_stop - 1]))
+            design = getattr(liu_shen_iter, "STEPS_PER_LAUNCH", 1)  # 1: one launch per step
+            for steps in (args.ls_steps if design > 1 else []) or [design]:
+                if design > 1:
+                    liu_shen_iter.STEPS_PER_LAUNCH = steps
+                for label, tol, k in (("fixed", 0.0, 60), ("early-stop", stop, k_stop)):
+                    nbytes, _ = kernel_costs(n, n)["liu_shen"]
+                    b, by = bound_ms(nbytes, 68 * k * n * n)
+
+                    def kernel(tol=tol):
+                        return liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, tol)
+
+                    def plain(tol=tol):
+                        return liu_shen_iter.liu_shen_iterate_plain(10.0, fields, z, z, 60, tol)
+
+                    k_got = int(kernel()[3])
+                    kt, pt = ab(kernel, plain, reps)
+                    emit(kernel="liu_shen", shape=list(shape), max_iter=60, stop=label,
+                         tol=tol, k=k_got, steps_per_launch=steps, event_ms=kt,
+                         plain_event_ms=pt, device_ms=device_ms(kernel, 20),
+                         host_ms=host_ms(kernel, reps), bound_ms=b, bound_by=by)
+            liu_shen_iter.STEPS_PER_LAUNCH = design
+            del a, b, fields, z, u, v, un, vn
+            torch.cuda.empty_cache()
         if "lk" not in args.skip:
             a = rng.uniform(0, 255, shape).astype(np.float32)
             bimg = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
@@ -178,6 +236,29 @@ def main() -> None:
                  device_ms=device_ms(kernel, 10 if n <= 1024 else 3), host_ms=host_ms(kernel, reps),
                  bound_ms=b, bound_by=by)
             del slab, g_pair
+            torch.cuda.empty_cache()
+        if "fb" not in args.skip:
+            im_a, im_b, _, _ = particle_image_pair(shape=shape, seed=0)
+            r0, r1 = (poly_expansion(torch.as_tensor(im, device=dev), 7, 1.5).contiguous()
+                      for im in (im_a, im_b))
+            z = torch.zeros(shape, device=dev)
+            m = tent_sample.update_matrices(z, z, r0, r1)
+            b, by = bound_ms(*kernel_costs(n, n)["fb_blur5_flow"])
+            for window in ("gaussian", "box"):
+                taps, mode, scale = _window_blur_spec(33, window == "gaussian")
+
+                def kernel():
+                    return blur5_flow.blur5_flow(m, taps, mode, scale)
+
+                def plain():
+                    return blur5_flow.blur5_flow_plain(m, taps, mode, scale)
+
+                k, p = ab(kernel, plain, reps)
+                emit(kernel="fb_blur5_flow", shape=list(shape), taps=33, window=window,
+                     event_ms=k, plain_event_ms=p, device_ms=device_ms(kernel, 50),
+                     host_ms=host_ms(kernel, reps), bound_ms=b, bound_by=by,
+                     issue_floor_ms=2 * b)
+            del r0, r1, m, z
             torch.cuda.empty_cache()
     print(gpu)
 

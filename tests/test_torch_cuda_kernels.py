@@ -8,7 +8,8 @@ file does not use tests/conftest.py (which imports jax); run it there with
 
 Built with -fmad=false, every kernel's flow equals its plain version's bit
 for bit; the Liu-Shen error, reduced in another order, agrees to 1e-5
-relative, and the Liu-Shen stop comes at the same iteration.  The HS kernel
+relative, and the Liu-Shen stop comes at the same iteration, also when it
+falls inside one of the kernel's launches of T steps.  The HS kernel
 is held at every niter mod T (its iterations per launch) and at several T.
 The LK build equals its plain version bit for bit, with the symmetric, the
 asymmetric and a four-run window; the GN loop and the fused build+GN are
@@ -117,8 +118,13 @@ def _ls_check(got, want):
     np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
-@pytest.mark.parametrize("max_iter", [0, 1, 2, 7])
+T_LS = liu_shen_iter.STEPS_PER_LAUNCH
+LS_SHAPES = [(2, 2), (3, 517), (47, 61), (333, 517), (512, 512), (2048, 2048)]
+LS_COUNTS = sorted({0, 1, 2, 7, T_LS, T_LS + 1, 60})
+
+
+@pytest.mark.parametrize("shape", LS_SHAPES)
+@pytest.mark.parametrize("max_iter", LS_COUNTS)
 def test_ls_kernel_fixed_count_equals_plain(dev, shape, max_iter):
     fields, u0, v0 = _ls_inputs(np.random.default_rng(2), shape, dev)
     before = liu_shen_iter.liu_shen_iterate.launches
@@ -130,19 +136,34 @@ def test_ls_kernel_fixed_count_equals_plain(dev, shape, max_iter):
     _ls_check(got, want)
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
-def test_ls_kernel_early_stop_equals_plain(dev, shape):
-    """A tol between the errors of iterations 4 and 5, each at least 1% away:
-    both stop after 5 of at most 40 iterations."""
+def ls_stop_tol(fields, u0, v0, residue, steps, max_iter=60):
+    """(k, tol): a tol that stops the plain solve after k < max_iter steps,
+    k = residue mod ``steps``, the errs of steps k-1 and k each at least 0.1%
+    away from it; k from 2 up."""
+    errs, u, v = [], u0, v0
+    for _ in range(max_iter):
+        un, vn = liu_shen_iter.liu_shen_iteration(u, v, fields, 10.0)
+        errs.append(float((torch.linalg.norm(un - u) + torch.linalg.norm(vn - v)) / u.numel()))
+        u, v = un, vn
+    for k in range(2, max_iter):
+        tol = float(np.sqrt(errs[k - 2] * errs[k - 1]))
+        if k % steps == residue and errs[k - 1] < 0.999 * tol and min(errs[:k - 1]) > 1.001 * tol:
+            return k, tol
+    raise AssertionError(f"no tol stops at k = {residue} mod {steps}: errs {errs}")
+
+
+@pytest.mark.parametrize("shape", LS_SHAPES)
+@pytest.mark.parametrize("residue", [0, 1, T_LS - 1], ids=["k=0modT", "k=1modT", "k=-1modT"])
+def test_ls_kernel_early_stop_equals_plain(dev, shape, residue):
+    """A tol that stops both after k of at most 60 steps, k at the last, the
+    first and the next-to-last step of a launch: the kernel returns the state
+    of step k (replayed when k ends no launch)."""
     fields, u0, v0 = _ls_inputs(np.random.default_rng(3), shape, dev)
-    errs = [float(liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, n, 0.0)[2])
-            for n in (4, 5)]
-    tol = float(np.sqrt(errs[0] * errs[1]))
-    assert errs[1] < 0.99 * tol < 1.01 * tol < errs[0]
-    got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, 40, tol)
-    want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, 40, tol)
+    k, tol = ls_stop_tol(fields, u0, v0, residue % T_LS, T_LS)
+    got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, 60, tol)
+    want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, 60, tol)
     torch.cuda.synchronize()
-    assert int(want[3]) == 5
+    assert int(want[3]) == k
     _ls_check(got, want)
 
 
@@ -332,13 +353,26 @@ def test_update_matrices_kernel_equals_plain(dev, shape, dmax, R):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("shape", FB_SHAPES)
-@pytest.mark.parametrize("window", list(WINDOWS))
-def test_blur5_flow_kernel_equals_plain(dev, shape, window):
+BLUR_SHAPES = [(2, 2), (3, 517), (5, 7), (47, 61), (333, 517), (512, 512), (2048, 2048)]
+BLUR_WINDOWS = ["gaussian", "box", "gaussian-scaled"]
+
+
+def blur_window(window, n):
+    """(taps, mode, scale) of an n-tap window: the Gaussian ("mirror", no
+    post-scale), the box ("nearest", scale 1/n^2), or the Gaussian with a
+    post-scale of 0.37."""
+    taps, mode, scale = _window_blur_spec(n, window != "box")
+    return taps, mode, (0.37 if window == "gaussian-scaled" else scale)
+
+
+@pytest.mark.parametrize("shape", BLUR_SHAPES)
+@pytest.mark.parametrize("window", BLUR_WINDOWS)
+@pytest.mark.parametrize("n", [1, 3, 33, 129])
+def test_blur5_flow_kernel_equals_plain(dev, shape, window, n):
     r0, r1 = _fb_expansions(dev, shape)
     fx, fy = _fb_flow(dev, shape, 2.0)
     m = tent_sample.update_matrices_plain(fx, fy, r0, r1)
-    taps, mode, scale = WINDOWS[window]
+    taps, mode, scale = blur_window(window, n)
     before = blur5_flow.blur5_flow.launches
     got = blur5_flow.blur5_flow(m, taps, mode, scale)
     want = blur5_flow.blur5_flow_plain(m, taps, mode, scale)

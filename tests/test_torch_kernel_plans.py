@@ -1,5 +1,5 @@
-"""What the Hopper HS and LK-build kernels take from Python, and the order of
-their arithmetic, checked on the CPU.
+"""What the Hopper HS, Liu-Shen, LK-build and Farneback blur kernels take
+from Python, and the order of their arithmetic, checked on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_cuda_kernels.py).
 Here:
@@ -14,7 +14,17 @@ Here:
     ``_smooth_factorization``, the run table the wrapper packs, and a NumPy
     model of the kernel's per-thread register ladder (32 outputs a thread in
     the x-pass, 16 in the y-pass, stages in place, remainder taps re-read)
-    against the ladder window sum, bit for bit.
+    against the ladder window sum, bit for bit;
+  * ``liu_shen_iter.launch_plan`` and ``stop_buffers`` (where the replay of a
+    stop inside a launch reads and writes), and a NumPy model of the blocked
+    Liu-Shen launches of ``csrc/liu_shen.cu`` (the "nearest" border and the
+    ring's zero border as index rules, err from the owned cells, the first
+    step at or under tol, the replay) against ``liu_shen_iterate_plain``: u,
+    v bit for bit and k equal, for stops at the first, an interior and the
+    last step of a launch;
+  * a NumPy model of the register-blocked sliding-window pass of
+    ``csrc/fb_blur5_flow.cu`` (R outputs a thread, a ring of R inputs, taps in
+    ascending order from -0) against ``ops/stencil.correlate1d`` bit for bit.
 """
 
 import math
@@ -25,8 +35,10 @@ import numpy as np
 import pytest
 import torch
 
-from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, lk_build
-from opticalflow_ri_tpu_torch.ops.stencil import TWELFTH
+from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
+from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build
+from opticalflow_ri_tpu_torch.ops.padding import _pad_index
+from opticalflow_ri_tpu_torch.ops.stencil import TWELFTH, correlate1d
 from opticalflow_ri_tpu_torch.ops.window_sums import _smooth_factorization, wsum2d
 
 CSRC = Path(hs_iter.__file__).resolve().parents[2] / "csrc"
@@ -60,7 +72,7 @@ def test_hs_launch_plan_edges():
     for bad in (0, 32):
         with pytest.raises(ValueError, match="steps per launch"):
             hs_iter.launch_plan(5, bad)
-    table = list(hs_iter._plan_table(hs_iter.launch_plan(17, 8)))
+    table = list(hs_iter.plan_table(hs_iter.launch_plan(17, 8)))
     assert table == [8, hs_iter.OUT, 8, hs_iter.TMP, 1, hs_iter.OUT]
 
 
@@ -214,3 +226,272 @@ def test_lk_segment_ladder_equals_wsum(runs, shape):
     got = _segment_ladder(t.T.copy(), runs, h, SEG_Y).T
     want = wsum2d(torch.from_numpy(x), runs, runs, 13, h, w, "ladder").numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------- Liu-Shen
+
+LS = liu_shen_iter
+
+
+def _alternating(counts):
+    return tuple((c, LS.OUT if (len(counts) - 1 - j) % 2 == 0 else LS.TMP)
+                 for j, c in enumerate(counts))
+
+
+LS_PLANS = {
+    6: {0: (), 1: ((1, LS.OUT),), 5: ((5, LS.OUT),), 6: ((6, LS.OUT),),
+        7: ((6, LS.TMP), (1, LS.OUT)),
+        60: tuple((6, LS.TMP if j % 2 == 0 else LS.OUT) for j in range(10))},
+    8: {0: (), 1: ((1, LS.OUT),), 7: ((7, LS.OUT),), 8: ((8, LS.OUT),),
+        9: ((8, LS.TMP), (1, LS.OUT)),
+        60: tuple((8 if j < 7 else 4, LS.TMP if j % 2 == 0 else LS.OUT) for j in range(8))},
+}
+
+
+@pytest.mark.parametrize("T,max_iter", [(T, m) for T, plans in LS_PLANS.items() for m in plans])
+def test_ls_launch_plan(T, max_iter):
+    """Counts and destinations at 0, 1, T-1, T, T+1 and 60 steps, and where
+    the replay of a stop in each launch reads and writes."""
+    plan = LS.launch_plan(max_iter, T)
+    assert plan == LS_PLANS[T][max_iter]
+    assert plan == _alternating([c for c, _ in plan])
+    srcs = [LS.IN] + [d for _, d in plan[:-1]]
+    for j, (_, dst) in enumerate(plan):
+        # the replay reads the launch's source, which that launch leaves
+        # untouched, and writes its destination
+        assert LS.stop_buffers(plan, j) == (srcs[j], dst)
+        assert srcs[j] != dst
+
+
+def test_ls_launch_plan_rejects_depths():
+    for bad in (0, LS.MAX_STEPS_PER_LAUNCH + 1):
+        with pytest.raises(ValueError, match="steps per launch"):
+            LS.launch_plan(60, bad)
+    assert LS.STEPS_PER_LAUNCH in LS_PLANS
+    assert LS.launch_plan(60, LS.STEPS_PER_LAUNCH) == LS_PLANS[LS.STEPS_PER_LAUNCH][60]
+
+
+def _ls_block_launch(fields, hreg, u, v, nit, T, ext):
+    """One launch of the blocked Liu-Shen kernel on an ext = (rows, cols)
+    extended tile, modelled tile by tile in float32: the owned cells of
+    (u, v) after ``nit`` steps (NaN elsewhere), and each step's sums of
+    (du)^2 and (dv)^2 over the owned cells, in double."""
+    h, w = u.shape
+    er, ec = ext
+    tr, tc = er - 2 * T, ec - 2 * T
+    f32 = np.float32
+    u_out, v_out = np.full_like(u, np.nan), np.full_like(v, np.nan)
+    sums = np.zeros((nit, 2))
+    for oy in range(-T, h - T, tr):
+        for ox in range(-T, w - T, tc):
+            gy, gx = oy + np.arange(er), ox + np.arange(ec)
+            iy = np.flatnonzero((gy >= 0) & (gy < h))
+            ix = np.flatnonzero((gx >= 0) & (gx < w))
+            ry, cx = np.arange(er), np.arange(ec)
+            # "nearest" at the image's edge, the cell itself at the tile's
+            rm = np.where(gy == 0, ry, np.maximum(ry - 1, 0))
+            rp = np.where(gy == h - 1, ry, np.minimum(ry + 1, er - 1))
+            cm = np.where(gx == 0, cx, np.maximum(cx - 1, 0))
+            cp = np.where(gx == w - 1, cx, np.minimum(cx + 1, ec - 1))
+            hn, hs = (gy > 0)[:, None], (gy < h - 1)[:, None]
+            hw, he = (gx > 0)[None, :], (gx < w - 1)[None, :]
+            tile, img = np.ix_(iy, ix), np.ix_(gy[iy], gx[ix])
+            fl = []
+            for a in fields:
+                t = np.zeros((er, ec), f32)
+                t[tile] = a[img]
+                fl.append(t)
+            iix, iiy, ii, ixt, iyt, b11, b12, b22 = fl
+            su, sv = np.zeros((er, ec), f32), np.zeros((er, ec), f32)
+            su[tile], sv[tile] = u[img], v[img]
+            inside = np.zeros((er, ec), bool)
+            inside[tile] = True
+            own = inside.copy()
+            own[:T], own[T + tr:], own[:, :T], own[:, T + tc:] = False, False, False, False
+
+            def nb(x, rows, cols):
+                return x[np.ix_(rows, cols)]
+
+            def ring(x):
+                z = lambda c, m: np.where(m, c, f32(0))  # noqa: E731
+                return (((z(nb(x, rm, cm), hn & hw) + z(nb(x, ry, cm), hw))
+                         + z(nb(x, rp, cm), hs & hw))
+                        + ((z(nb(x, rm, cx), hn) + x) + z(nb(x, rp, cx), hs))
+                        + ((z(nb(x, rm, cp), hn & he) + z(nb(x, ry, cp), he))
+                           + z(nb(x, rp, cp), hs & he))) - x
+
+            for it in range(nit):
+                du1 = (nb(su, rp, cx) - nb(su, rm, cx)) * f32(0.5)
+                du2 = (nb(su, ry, cp) - nb(su, ry, cm)) * f32(0.5)
+                fu1 = nb(su, rm, cx) + nb(su, rp, cx)
+                mu = ((nb(su, rp, cp) - nb(su, rp, cm)) - (nb(su, rm, cp) - nb(su, rm, cm))) \
+                    * f32(0.25)
+                dv1 = (nb(sv, rp, cx) - nb(sv, rm, cx)) * f32(0.5)
+                dv2 = (nb(sv, ry, cp) - nb(sv, ry, cm)) * f32(0.5)
+                fv2 = nb(sv, ry, cm) + nb(sv, ry, cp)
+                mv = ((nb(sv, rp, cp) - nb(sv, rp, cm)) - (nb(sv, rm, cp) - nb(sv, rm, cm))) \
+                    * f32(0.25)
+                bu = iix * (f32(2) * du1 + dv2) + iiy * dv1 + ii * (fu1 + mv) + hreg * ring(su) + ixt
+                bv = iiy * (du1 + f32(2) * dv2) + iix * du2 + ii * (mu + fv2) + hreg * ring(sv) + iyt
+                un = -(b11 * bu + b12 * bv)
+                vn = -(b12 * bu + b22 * bv)
+                sums[it] += [np.sum(((un - su)[own]).astype(np.float64) ** 2),
+                             np.sum(((vn - sv)[own]).astype(np.float64) ** 2)]
+                su, sv = np.where(inside, un, su), np.where(inside, vn, sv)
+            keep = np.ix_(gy[own.any(1)], gx[own.any(0)])
+            u_out[keep] = su[np.ix_(own.any(1), own.any(0))]
+            v_out[keep] = sv[np.ix_(own.any(1), own.any(0))]
+    return u_out, v_out, sums
+
+
+def _ls_blocked_solve(fields, hreg, u0, v0, max_iter, tol, T, ext):
+    """The blocked solve through the plan's launches: the stop settled after
+    each launch from its steps' errs, the replay of a stop inside a launch
+    from that launch's source into its destination."""
+    h, w = u0.shape
+    plan = LS.launch_plan(max_iter, T)
+    bufs = {LS.IN: (u0, v0)}
+    k, err, final = 0, np.float32(1e8), LS.IN
+    active = max_iter > 0 and np.float32(1e8) > tol
+    for j, (nit, dst) in enumerate(plan):
+        if not active:
+            break
+        src = LS.stop_buffers(plan, j)[0]
+        u, v, sums = _ls_block_launch(fields, hreg, *bufs[src], nit, T, ext)
+        bufs[dst], final = (u, v), dst
+        for i in range(nit):
+            err = np.float32((np.sqrt(sums[i, 0]) + np.sqrt(sums[i, 1])) / (h * w))
+            k += 1
+            if not (err > tol and k < max_iter):
+                active = False
+                if i + 1 < nit:
+                    bufs[dst] = _ls_block_launch(fields, hreg, *bufs[src], i + 1, T, ext)[:2]
+                break
+    return (*bufs[final], k, err)
+
+
+def _ls_problem(shape, seed=3):
+    rng = np.random.default_rng(seed)
+    a, b = (torch.from_numpy(rng.uniform(1, 255, shape).astype(np.float32)) for _ in range(2))
+    fields = [f.numpy() for f in liu_shen_precompute(a / a.max(), b / b.max(), 10.0)]
+    u0, v0 = (rng.uniform(-0.5, 0.5, shape).astype(np.float32) for _ in range(2))
+    return fields, u0, v0
+
+
+def _ls_plain(fields, u0, v0, max_iter, tol):
+    return LS.liu_shen_iterate_plain(10.0, [torch.from_numpy(f) for f in fields],
+                                     torch.from_numpy(u0), torch.from_numpy(v0), max_iter, tol)
+
+
+LS_TILES = [((8, 12), 2), ((9, 11), 3), ((32, 64), 6)]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (3, 17), (13, 21)])
+@pytest.mark.parametrize("ext,T", LS_TILES, ids=["8x12-T2", "9x11-T3", "32x64-T6"])
+def test_ls_blocked_model_fixed_count_equals_plain(shape, ext, T):
+    """tol = 0: every step runs; max_iter at 0, 1, T-1, T, T+1, 2T+1."""
+    fields, u0, v0 = _ls_problem(shape)
+    for max_iter in sorted({0, 1, T - 1, T, T + 1, 2 * T + 1}):
+        u, v, k, _ = _ls_blocked_solve(fields, np.float32(10.0), u0, v0, max_iter, 0.0, T, ext)
+        want = _ls_plain(fields, u0, v0, max_iter, 0.0)
+        assert k == int(want[3]) == max_iter
+        np.testing.assert_array_equal(u, want[0].numpy())
+        np.testing.assert_array_equal(v, want[1].numpy())
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (3, 17), (13, 21)])
+@pytest.mark.parametrize("ext,T", LS_TILES[:2], ids=["8x12-T2", "9x11-T3"])
+@pytest.mark.parametrize("where", ["first", "interior", "last"])
+def test_ls_blocked_model_stop_equals_plain(shape, ext, T, where):
+    """A tol that stops the solve at the first, an interior or the last step
+    of the second launch: the state of that step, bit for bit, k equal."""
+    if T == 2 and where == "interior":
+        T, ext = 3, (9, 11)  # a launch of 2 steps has no interior step
+    fields, u0, v0 = _ls_problem(shape)
+    k_stop = T + {"first": 1, "interior": 2, "last": T}[where]
+    errs = [float(_ls_plain(fields, u0, v0, n, 0.0)[2]) for n in range(1, k_stop + 1)]
+    tol = float(np.sqrt(errs[-2] * errs[-1]))
+    assert errs[-1] < 0.999 * tol and min(errs[:-1]) > 1.001 * tol
+    max_iter = 3 * T + 1
+    u, v, k, err = _ls_blocked_solve(fields, np.float32(10.0), u0, v0, max_iter, tol, T, ext)
+    want = _ls_plain(fields, u0, v0, max_iter, tol)
+    assert k == int(want[3]) == k_stop
+    np.testing.assert_array_equal(u, want[0].numpy())
+    np.testing.assert_array_equal(v, want[1].numpy())
+    np.testing.assert_allclose(err, float(want[2]), rtol=1e-5)
+
+
+# ---------------------------------------------------------------- Farneback window blur
+
+def _slide_pass(x, taps, mode, axis, R):
+    """One pass of csrc/fb_blur5_flow.cu along ``axis``, modelled in float32:
+    each thread sums R consecutive outputs from a ring of R inputs (input i
+    in slot i % R), the taps in ascending order from -0; the border a source
+    index rule, also for the run's outputs past the edge."""
+    f32 = np.float32
+    n, half = len(taps), len(taps) // 2
+    xs = np.moveaxis(x, axis, -1)
+    size = xs.shape[-1]
+    nblk = -(-size // R)
+    xp = xs[..., _pad_index(size, half, nblk * R + n - 1 - half - size, mode)]
+    out = np.empty(xs.shape[:-1] + (nblk * R,), f32)
+    for b in range(nblk):
+        base = b * R
+        ring = [None] * R
+        for q in range(R - 1):
+            ring[q] = xp[..., base + q]
+        acc = [np.full(xs.shape[:-1], -0.0, f32) for _ in range(R)]
+
+        def tap(j, q):
+            ring[(q + R - 1) % R] = xp[..., base + j + R - 1]
+            t = f32(taps[j])
+            for o in range(R):
+                acc[o] = acc[o] + ring[(o + q) % R] * t
+
+        j0 = 0
+        while j0 + R <= n:
+            for q in range(R):
+                tap(j0 + q, q)
+            j0 += R
+        for q in range(R - 1):
+            if j0 + q < n:
+                tap(j0 + q, q)
+        out[..., base:base + R] = np.stack(acc, axis=-1)
+    return np.moveaxis(out[..., :size], -1, axis)
+
+
+@pytest.mark.parametrize("n", [1, 3, 33, 129])
+@pytest.mark.parametrize("mode", ["mirror", "nearest"])
+@pytest.mark.parametrize("shape", [(2, 3), (5, 7), (37, 70)])
+def test_fb_sliding_pass_equals_correlate1d(n, mode, shape):
+    """Both passes (rows, columns) at every tap count the kernel is run
+    with, including shapes far smaller than the halo."""
+    rng = np.random.default_rng(n)
+    taps = rng.uniform(0.01, 1.0, n).astype(np.float32)
+    x = rng.normal(0, 100, (5, *shape)).astype(np.float32)
+    for axis in (-2, -1):
+        got = _slide_pass(x, taps, mode, axis, blur5_flow.OUTPUTS_PER_THREAD)
+        want = correlate1d(torch.from_numpy(x), taps, axis=axis, mode=mode).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("window", ["gaussian", "box"])
+def test_fb_sliding_blur_and_solve_equals_plain(window):
+    """y-pass, x-pass, the post-scale and the solve against
+    ``blur5_flow_plain``: the calibrated 33-tap windows (the box's scale is
+    1/33^2)."""
+    from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec
+
+    taps, mode, scale = _window_blur_spec(33, window == "gaussian")
+    rng = np.random.default_rng(9)
+    m = rng.normal(0, 1, (5, 40, 75)).astype(np.float32)
+    m[0] += 4.0
+    m[2] += 4.0  # a well-conditioned 2x2 system
+    R = blur5_flow.OUTPUTS_PER_THREAD
+    g = _slide_pass(_slide_pass(m, taps, mode, -2, R), taps, mode, -1, R)
+    if scale != 1.0:
+        g = g * np.float32(scale)
+    got = blur5_flow.update_flow(torch.from_numpy(g))
+    want = blur5_flow.blur5_flow_plain(torch.from_numpy(m), taps, mode, scale)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
