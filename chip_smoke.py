@@ -21,8 +21,13 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                per launch; the LK build at 512^2, 333x517 and
                2048^2, bit for bit, with the symmetric and an asymmetric
                window, and a four-run window at 512^2; the GN loop at those
-               shapes on calibrated and wild flows;
-               the fused LK build+GN at 512^2 and 333x517; the Farneback
+               shapes bit for bit on a calibrated and a wild flow, the
+               configs' own input (captured in run_config("LK_Fs2_0")) and
+               one whose pixels stop at every step from 0 to 5 (singular
+               windows, bails), at 0, 1 and 5 steps; the fused LK build+GN
+               bit for bit at 47x61, 333x517,
+               512^2 and 2048^2 with the three windows, and at R = 6 (a
+               cluster of 16) at 512^2; the Farneback
                updateMatrices at 512^2, 333x517 and 2048^2 on calibrated
                and wild flows, and the exact gather at 512^2; the Farneback
                window blur + solve bit for bit at the Liu-Shen shapes, 1, 3,
@@ -42,8 +47,12 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
   5. times   — CUDA-event medians, kernel path against plain PyTorch on the
                card, per configuration and per kernel at 512^2 and 2048^2;
                the device time per call (a CUDA graph replayed back to
-               back; at 2048^2 for the HS, Liu-Shen, LK-build and FB blur
-               kernels) beside the bound;
+               back; at 2048^2 for the HS, Liu-Shen, LK and FB blur
+               kernels) beside the bound; the LK GN and fused kernels on
+               the configs' own input, the GN also on a random flow, with
+               the mean GN steps a pixel runs (``gn_exit``), and the GN's
+               device time on the path: the build then the GN in one graph,
+               less the build alone;
                for the pair warp also one ``F.grid_sample`` call, its
                library yardstick, by event and by graph replay.
 
@@ -73,7 +82,6 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "synthetic96_flows.npz")
 
 LS_ERR_BAR = 1e-5      # relative on the Liu-Shen err (u, v bitwise, k equal)
 WARP_BAR_REL = 1e-5    # relative to the image's range
-LK_BAR = 1.2e-4        # absolute on the LK window origins (ROADMAP's LK bar); status equal
 AEE_BAR = 5e-6         # card against the CPU plain path, whole pipeline
 GOLDEN_BAR = 1e-3      # tests/test_golden.py
 FB_GOLDEN_BAR = 2e-3   # tests/test_golden.py:test_fb_golden
@@ -85,6 +93,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 LK_CONFIGS = ("denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
               "LK_Fs2_0", "LK_Fs2_0_PyrLvls2")
+CFG_INPUT = "configs' own: the wrapper's arguments in run_config('LK_Fs2_0')"
 FB_CONFIGS = ("Farneback_Fs0_0", "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2",
               "FB_Fs0_0", "FB_Fs0_0_PyrLvls2")
 
@@ -100,18 +109,21 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_costs(h: int, w: int, hs_niter: int = 100) -> dict:
+def kernel_costs(h: int, w: int, hs_niter: int = 100, gn_steps: float = 5) -> dict:
     """(bytes, operations) of one call of each kernel on an h x w image, as
     the times phase calls it (HS at ``hs_niter`` iterations, LK at R = 5 and
-    5 GN steps, FB at R = 5, 33 taps and 5 rounds, Liu-Shen at 60 steps):
+    ``gn_steps`` GN steps per pixel on average, FB at R = 5, 33 taps and 5
+    rounds, Liu-Shen at 60 steps):
     each input read once and each output written
     once; operations are the kernel's float arithmetic per pixel, from its
     source (HS: 27 per iteration and 5 for the reciprocal; warp: 36 per image;
     Liu-Shen: 68 per step; LK build: 1 product and 6 ladder adds per pass
     at the L = 27 window, per shift and gradient; LK GN: 8 gathered plane
-    reads and ~60 operations per step; the fused LK build: the two-level
-    sums' 10 adds per pass; FB updateMatrices ~100; FB blur + solve: 5 planes,
-    2 passes of 33 taps, a product and a sum each, and the solve)."""
+    reads and ~60 operations per step the pixel runs (``gn_steps``: the
+    kernels end a pixel's loop at its first inactive step); the fused LK
+    build: the two-level sums' 10 adds per pass; FB updateMatrices ~100; FB
+    blur + solve: 5 planes, 2 passes of 33 taps, a product and a sum each,
+    and the solve)."""
     n = h * w
     core = (h + 31) * (w + 31)       # the LK gradient pair's planes
     slab = (h + 41) * (w + 41)       # the LK J slab at R = 5
@@ -120,8 +132,8 @@ def kernel_costs(h: int, w: int, hs_niter: int = 100) -> dict:
         "warp_pair": (32 * n, 72 * n),
         "liu_shen": (48 * n, 68 * 60 * n),                          # 60 steps
         "lk_build": (4 * (slab + 2 * core + 2 * 121 * n), 2 * 121 * 13 * n),
-        "lk_gn": ((44 + 4 * 8 * 5) * n, 60 * 5 * n),                # 5 steps
-        "lk_fused": (4 * (slab + 2 * core + 11 * n), (2 * 121 * 21 + 300) * n),
+        "lk_gn": ((44 + 4 * 8 * gn_steps) * n, 60 * gn_steps * n),
+        "lk_fused": (4 * (slab + 2 * core + 11 * n), (2 * 121 * 21 + 60 * gn_steps) * n),
         "fb_update_matrices": (68 * n, 100 * n),
         "fb_blur5_flow": (28 * n, (5 * 2 * 33 * 2 + 15) * n),
         "fb_fused": (56 * n, 5 * (100 + 675) * n),                   # 5 rounds
@@ -133,6 +145,85 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     memory rate and the operations over the float32 peak, and which it is."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def capture_lk_args(run_config, lk_build, lk_iter, name, im1, im2):
+    """The arguments the LK build and GN wrappers receive during one
+    ``run_config(name, im1, im2)``, their last call each: (build args, GN
+    args).  The wrappers are swapped for recorders that call them, for this
+    run only."""
+    seen = {}
+    saved = lk_build.lk_build_planes, lk_iter.lk_gn_iterate
+
+    def recorder(key, fn):
+        def record(*args):
+            seen[key] = args
+            return fn(*args)
+        record.launches = fn.launches  # the wrapper counts through its module's name
+        return record
+
+    rec = recorder("build", saved[0]), recorder("gn", saved[1])
+    lk_build.lk_build_planes, lk_iter.lk_gn_iterate = rec
+    try:
+        run_config(name, im1, im2)
+    finally:
+        lk_build.lk_build_planes, lk_iter.lk_gn_iterate = saved
+        for fn, r in zip(saved, rec):
+            fn.launches = r.launches
+    return seen["build"], seen["gn"]
+
+
+def gn_exit(lk_iter, t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0, n_iter, R, hw):
+    """The GN loop as ``csrc/lk_iter.cu`` runs it, pixel by pixel as a vector:
+    each step runs the out-of-bounds bail on every pixel, then the rest of
+    the step only on the pixels still active (the others keep their state and
+    load nothing), and the loop ends when none is active.  Returns (px, py,
+    status, steps): steps is the (h, w) int64 count of the steps each pixel
+    ran (0: a singular window or a bail at the first step), which sets the
+    kernels' bound.  tests/test_torch_kernel_plans.py holds (px, py, status)
+    equal to ``lk_iter.lk_gn_iterate_plain`` bit for bit."""
+    import torch
+
+    nshift = 2 * R + 1
+    h, w = ia11.shape
+    dev = ia11.device
+    jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    flat = [t.reshape(nshift * nshift, h * w) for t in (t1, t2)]
+    offsets = torch.arange(h * w, device=dev).reshape(h, w)
+    px, py, active = px0.clone(), py0.clone(), act0.clone()
+    status = torch.ones((h, w), dtype=torch.float32, device=dev)
+    steps = torch.zeros((h, w), dtype=torch.int64, device=dev)
+    for _ in range(int(n_iter)):
+        oob = ((px < -hw) | (px >= w) | (py < -hw) | (py >= h)).to(torch.float32)
+        status = status * (1.0 - active * oob)
+        active = active * (1.0 - oob)
+        live = active != 0
+        if not bool(live.any()):
+            break
+        steps += live
+        uc = (px[live] + hw - jj[live]).clamp(-R, lk_iter.clip_hi(R))
+        vc = (py[live] + hw - ii[live]).clamp(-R, lk_iter.clip_hi(R))
+        sx, sy = torch.floor(uc), torch.floor(vc)
+        wx0 = (1.0 - (uc - sx).abs()).clamp_min(0.0)
+        wx1 = (1.0 - (uc - (sx + 1.0)).abs()).clamp_min(0.0)
+        wy0 = (1.0 - (vc - sy).abs()).clamp_min(0.0)
+        wy1 = (1.0 - (vc - (sy + 1.0)).abs()).clamp_min(0.0)
+        s00 = (sy.long() + R) * nshift + (sx.long() + R)
+        at = offsets[live]
+        sums = []
+        for tf in flat:
+            v = [tf[s00 + o, at] for o in (0, nshift, 1, nshift + 1)]
+            sums.append(wx0 * (wy0 * v[0] + wy1 * v[1]) + wx1 * (wy0 * v[2] + wy1 * v[3]))
+        b1, b2 = sums[0] - c1[live], sums[1] - c2[live]
+        dx = (ia12[live] * b2 - ia22[live] * b1) * 32.0
+        dy = (ia12[live] * b1 - ia11[live] * b2) * 32.0
+        a = active[live]
+        px[live] = px[live] + dx * a
+        py[live] = py[live] + dy * a
+        small = ((dx.abs() < lk_iter.STEP_EPS) & (dy.abs() < lk_iter.STEP_EPS)).to(torch.float32)
+        active[live] = a * (1.0 - small)
+    return px, py, status, steps
 
 
 def aee(u, v, u_ref, v_ref) -> float:
@@ -307,14 +398,32 @@ def main() -> None:
                                 asym=asym)
 
     def lk_compare(name, label, got, want):
+        """px, py and status bit for bit."""
         d = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
         same = all(torch.equal(g, w) for g, w in zip(got, want))
-        status_same = torch.equal(got[2], want[2])
-        print(f"{name} {label}: max|d|={d!r} (bar {LK_BAR}) status equal={status_same} "
-              f"bitwise={same}")
-        if not (d <= LK_BAR and status_same):
+        print(f"{name} {label}: max|d|={d!r} (bar: bitwise, status too) bitwise={same}")
+        if not same:
             raise AssertionError(f"{name} disagrees with its plain version ({label})")
         err[name] = max(err[name], d)
+
+    def lk_stops_input(shape):
+        """GN inputs whose pixels end their loop at every step from 0 to 5: a
+        frame with a flat band (singular windows: no step) and its rolled
+        noisy copy, some origins beyond the bail bounds (a bail at the first
+        step), the rest a random flow of |d| <= 4; the planes from the build
+        kernel, which the parity above holds to its plain version."""
+        a = rng.uniform(0, 255, shape).astype(np.float32)
+        a[:, : shape[1] // 4] = 7.0
+        b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+        u0 = rng.uniform(-4, 4, shape).astype(np.float32)
+        v0 = rng.uniform(-4, 4, shape).astype(np.float32)
+        u0[::3, ::2] = 70.0
+        v0[1::4, 1::3] = -60.0
+        slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
+            *(torch.as_tensor(x, device=dev) for x in (a, b, u0, v0)))
+        return (*lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x), *fields)
+
+    gn_exits = set()
 
     # the LK build's windows: symmetric, asymmetric (near and far taps
     # dropped in x: two runs), and four runs of every ladder form
@@ -346,19 +455,51 @@ def main() -> None:
             torch.cuda.empty_cache()
         slab, g_pair, runs_y, runs_x, (t1, t2) = sym
         del sym
-        for label, dmax in (("calibrated", 4.0), ("wild", 20.0)):
-            fields = lk_problem(pair, dmax)[2]
-            got = lk_iter.lk_gn_iterate(t1, t2, *fields, 5, 5, 13)
-            want = lk_iter.lk_gn_iterate_plain(t1, t2, *fields, 5, 5, 13)
-            torch.cuda.synchronize()
-            lk_compare("lk_gn", f"{shape} n_iter=5 {label} |d|<={dmax}", got, want)
-        del t1, t2, got
-        if shape != (2048, 2048):
-            got = lk_iter.lk_fused(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x)
-            want = lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x)
-            torch.cuda.synchronize()
-            lk_compare("lk_fused", f"{shape} n_iter=5 wild |d|<=20", got, want)
+        im_a, im_b, _, _ = particle_image_pair(shape=shape, seed=0)
+        cfg_gn = capture_lk_args(run_config, lk_build, lk_iter, "LK_Fs2_0",
+                                 torch.as_tensor(im_a, device=dev),
+                                 torch.as_tensor(im_b, device=dev))[1]
+        gn_inputs = {"calibrated |d|<=4": (t1, t2, *lk_problem(pair, 4.0)[2]),
+                     "wild |d|<=20": (t1, t2, *lk_problem(pair, 20.0)[2]),
+                     "configs' own (LK_Fs2_0)": cfg_gn[:10],
+                     "stops (flat band, bails)": lk_stops_input(shape)}
+        for label, gargs in gn_inputs.items():
+            counts = gn_exit(lk_iter, *gargs, 5, 5, 13)[3]
+            hist = torch.bincount(counts.flatten(), minlength=6).tolist()
+            gn_exits.update(k for k, c in enumerate(hist) if c)
+            for n_iter in (0, 1, 5):
+                got = lk_iter.lk_gn_iterate(*gargs, n_iter, 5, 13)
+                want = lk_iter.lk_gn_iterate_plain(*gargs, n_iter, 5, 13)
+                torch.cuda.synchronize()
+                lk_compare("lk_gn", f"{shape} {label} n_iter={n_iter} "
+                           f"(pixels by steps run 0..5: {hist})", got, want)
+        del t1, t2, got, want, gn_inputs, cfg_gn
         torch.cuda.empty_cache()
+    if gn_exits != set(range(6)):
+        raise AssertionError(f"the GN parity inputs end pixels at steps {sorted(gn_exits)}, "
+                             f"not at every step from 0 to 5")
+
+    # the fused LK solve: from a partial last tile up to 2048^2, the three
+    # windows, R = 5 (clusters of 8) and, at 512^2, R = 6 (clusters of 16)
+    for shape in [(47, 61), (333, 517), (512, 512), (2048, 2048)]:
+        pair = lk_pair(shape)
+        cases = [(wname, window, 5) for wname, window in lk_windows.items()]
+        if shape == (512, 512):
+            cases.append(("symmetric", None, 6))
+        for wname, window, R in cases:
+            asym = window if wname.startswith("asym") else (0, 0, 0, 0)
+            slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
+                *pair, rand(shape, -20, 20), rand(shape, -20, 20), asym=asym, max_shift=R)
+            if wname == "four runs":
+                runs_y, runs_x = window
+            got = lk_iter.lk_fused(slab, g_pair, *fields, 5, R, 13, runs_y, runs_x)
+            want = lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, R, 13, runs_y, runs_x)
+            torch.cuda.synchronize()
+            lk_compare("lk_fused", f"{shape} {wname} window {runs_y} x {runs_x}, R={R} "
+                       f"(cluster of {lk_iter.fused_plan(R)[0]}), n_iter=5 wild |d|<=20",
+                       got, want)
+            del slab, g_pair, fields, got, want
+            torch.cuda.empty_cache()
 
     windows = {"gaussian": _window_blur_spec(33, True), "box": _window_blur_spec(33, False)}
 
@@ -674,17 +815,23 @@ def main() -> None:
 
     kernel_times, device_times, library_times, library_device_times = {}, {}, {}, {}
 
-    def time_kernel(name, shape, kernel_fn, plain_fn, reps, replays, **info):
+    bounds, gn_after_build = {}, {}
+
+    def time_kernel(name, shape, kernel_fn, plain_fn, reps, replays, key=None, gn=5, **info):
         """Event medians of kernel and plain in turns; the device time per
         call from graph replays (every kernel at 512^2, the redesigned HS,
-        Liu-Shen, LK-build and FB blur kernels at 2048^2 too); the bound of
-        the call."""
+        Liu-Shen and LK kernels and the FB blur at 2048^2 too); the bound of
+        the call (``gn``: the mean GN steps a pixel runs on this input).
+        Kept under ``key`` (default: the kernel's name)."""
+        key = (key or name, shape)
         k, p = ab(kernel_fn, plain_fn, reps)
-        kernel_times[(name, shape)] = (k, p)
+        kernel_times[key] = (k, p)
         rec = {"kernel": name, "shape": list(shape), **info, "kernel_ms": k, "plain_ms": p}
-        if shape == (512, 512) or name in ("hs_jacobi", "liu_shen", "lk_build", "fb_blur5_flow"):
-            device_times[(name, shape)] = rec["device_ms"] = device_ms(kernel_fn, replays)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(*kernel_costs(*shape)[name])
+        if shape == (512, 512) or name in ("hs_jacobi", "liu_shen", "lk_build", "lk_gn",
+                                           "lk_fused", "fb_blur5_flow"):
+            device_times[key] = rec["device_ms"] = device_ms(kernel_fn, replays)
+        bounds[key] = bound_ms(*kernel_costs(*shape, gn_steps=gn)[name])
+        rec["bound_ms"], rec["bound_by"] = bounds[key]
         print(json.dumps({**rec, "gpu": gpu}))
 
     for shape in [(512, 512), (2048, 2048)]:
@@ -730,16 +877,39 @@ def main() -> None:
                     lambda: lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x),
                     lambda: lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x),
                     reps, 10 if small else 3, shifts=121)
+        # K7 and K8 on the configs' own input (what the wrappers receive in
+        # one run_config("LK_Fs2_0") on the particle pair of this shape: a
+        # smooth flow from zero), K7 also on the random flow above
         t1, t2 = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
-        time_kernel("lk_gn", shape, lambda: lk_iter.lk_gn_iterate(t1, t2, *fields, 5, 5, 13),
-                    lambda: lk_iter.lk_gn_iterate_plain(t1, t2, *fields, 5, 5, 13), reps, 20,
-                    n_iter=5, flow="|d|<=4")
+        im_a, im_b, _, _ = particle_image_pair(shape=shape, seed=0)
+        bargs, gargs = capture_lk_args(run_config, lk_build, lk_iter, "LK_Fs2_0",
+                                       torch.as_tensor(im_a, device=dev),
+                                       torch.as_tensor(im_b, device=dev))
+        steps = {}
+        for key, label, args in ((None, CFG_INPUT, gargs),
+                                 ("lk_gn random", "random |d|<=4", (t1, t2, *fields, 5, 5, 13))):
+            steps[key] = float(gn_exit(lk_iter, *args)[3].double().mean())
+            time_kernel("lk_gn", shape, lambda a=args: lk_iter.lk_gn_iterate(*a),
+                        lambda a=args: lk_iter.lk_gn_iterate_plain(*a), reps, 20, key=key,
+                        gn=steps[key], n_iter=5, input=label, mean_steps=steps[key])
         del t1, t2
-        time_kernel("lk_fused", shape,
-                    lambda: lk_iter.lk_fused(slab, g_pair, *fields, 5, 5, 13, runs_y, runs_x),
-                    lambda: lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, 5, 13, runs_y,
-                                                   runs_x), reps, 3, n_iter=5, flow="|d|<=4")
-        del slab, g_pair, fields
+        # K7 as the path runs it: right after the build that writes its
+        # planes (evict-first), not on planes a previous K7 left in L2
+        replays = 20 if small else 3
+        t_build = device_ms(lambda: lk_build.lk_build_planes(*bargs), replays)
+        t_both = device_ms(lambda: lk_iter.lk_gn_iterate(*lk_build.lk_build_planes(*bargs),
+                                                         *gargs[2:]), replays)
+        gn_after_build[shape] = t_both - t_build
+        print(json.dumps({"kernel": "lk_gn", "shape": list(shape), "input": CFG_INPUT,
+                          "after": "lk_build in one graph", "build_device_ms": t_build,
+                          "build_and_gn_device_ms": t_both,
+                          "gn_after_build_device_ms": t_both - t_build, "gpu": gpu}))
+        fargs = (bargs[0], bargs[1], *gargs[2:11], bargs[3], bargs[2], bargs[4], bargs[5])
+        time_kernel("lk_fused", shape, lambda: lk_iter.lk_fused(*fargs),
+                    lambda: lk_iter.lk_fused_plain(*fargs), reps, 10 if small else 3,
+                    gn=steps[None], n_iter=5, input=CFG_INPUT,
+                    cluster=lk_iter.fused_plan(5)[0])
+        del slab, g_pair, fields, bargs, gargs, fargs
         # the Farneback kernels at the calibrated config: R = 5, window 33
         # Gaussian, 5 iterations for the fused loop
         r0, r1 = fb_expansions(shape)
@@ -776,10 +946,9 @@ def main() -> None:
         "fb_blur5_flow": ("fb_blur5_flow.cu", "blur5_flow.py:124", ["blur5_flow.py:196"]),
         "fb_fused": ("fb_fused.cu", "fb_fused2.py:163", []),
     }
-    costs = kernel_costs(512, 512)
     kernels = []
     for name, (src, tpu, also) in replaced.items():
-        b, by = bound_ms(*costs[name])
+        b, by = bounds[(name, (512, 512))]
         kern = {"name": name, "route": "cuda", "source": f"opticalflow_ri_tpu_torch/csrc/{src}",
                 "replaces": f"opticalflow_ri_tpu/ops/pallas/{tpu}",
                 "launches": launches[name], "max_abs_err": err[name],
@@ -790,6 +959,12 @@ def main() -> None:
         if also:
             kern["also_replaces"] = [f"opticalflow_ri_tpu/ops/pallas/{t}" for t in also]
         kern["device_ms"] = device_times[(name, (512, 512))]
+        if name in ("lk_gn", "lk_fused"):
+            kern["input"] = CFG_INPUT + ", particle_image_pair((512, 512), seed=0)"
+        if name == "lk_gn":  # on the path K7 follows K6, whose planes reach it from HBM
+            kern["device_ms_warm"] = kern["device_ms"]
+            kern["device_ms"] = gn_after_build[(512, 512)]
+            kern["device_ms_of"] = "lk_build then lk_gn in one CUDA graph, less lk_build alone"
         if (name, (512, 512)) in library_device_times:
             kern["library_device_ms"] = library_device_times[(name, (512, 512))]
         kernels.append(kern)

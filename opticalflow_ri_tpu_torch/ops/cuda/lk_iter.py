@@ -11,7 +11,13 @@ The blend of T1/T2 at a pixel's displacement reads the 2x2 enclosing
 integer shifts with tent weights max(0, 1 - |uc - s|) and adds them in the
 TPU kernel's separable order (``lk_iter.py:92-106``: over sy, then over sx,
 ascending, from 0), where every other tent weight is exactly 0.  The rest is
-``models/lucas_kanade.py:401-435``.
+``models/lucas_kanade.py:401-435``.  Both kernels end a pixel's loop at its
+first inactive step, which changes nothing for the finite fields and the
+never -0 origins the LK solve makes (``csrc/lk_iter.cu``).  That is the
+kernels' contract on their inputs: finite planes and fields and no -0 among
+px0, py0, as ``models/lucas_kanade.py:lk_kernel_inputs`` gives them.  For
+other inputs a kernel may differ from its plain version (with a NaN field
+the plain loop gives NaN where the kernel keeps an inactive pixel's origin).
 
 All return (px, py, status): the final window origins (the pixel minus the
 half window plus the flow) and the 0/1 status, (h, w) float32.  ``act0`` is
@@ -21,21 +27,48 @@ the non-singular-window mask as 0/1 float32.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from opticalflow_ri_tpu_torch.ops.cuda import build
 from opticalflow_ri_tpu_torch.ops.cuda.lk_build import (
-    check_build_inputs, lk_build_planes_plain, run_table,
+    EXT, check_build_inputs, lk_build_planes_plain, run_table,
 )
 
 STEP_EPS = float(np.float32(0.01))
+# the fused kernel: a cluster of blocks owns a FUSED_TILE^2 pixel tile, shift
+# s in block s % size; the smallest size in FUSED_CLUSTER_SIZES whose planes
+# fit shared memory
+FUSED_TILE = 32
+FUSED_CLUSTER_SIZES = (8, 16)
+FUSED_SLOTS = 4  # planes a block builds a round: 2 shifts x 2 gradients
+MAX_SMEM_BYTES = 227 * 1024
 
 
 def clip_hi(R: int) -> float:
     """The upper displacement clamp R - 1e-3, rounded to float32 as JAX does."""
     return float(np.float32(int(R) - 1e-3))
+
+
+def fused_plan(R: int):
+    """(cluster size, shifts per block, shared bytes per block) of the fused
+    kernel at shift radius R (``csrc/lk_iter.cu:fused_smem_bytes``): the
+    block's planes, the tile's staged J rows ((63 + 2R)^2), both gradients
+    (2 x 63^2) and the x-pass results of a round, in the smallest cluster
+    that holds the planes.  Raises ValueError when none does."""
+    nplanes = (2 * int(R) + 1) ** 2
+    rows = FUSED_TILE + EXT
+    for size in FUSED_CLUSTER_SIZES:
+        per = -(-nplanes // size)
+        jn = rows + 2 * int(R)
+        nbytes = 4 * (per * 2 * FUSED_TILE ** 2 + jn * jn + 2 * rows * rows
+                      + FUSED_SLOTS * rows * (FUSED_TILE + 1))
+        if nbytes <= MAX_SMEM_BYTES:
+            return size, per, nbytes
+    raise ValueError(f"lk_fused: the planes of R = {R} do not fit the shared memory of a "
+                     f"cluster of {FUSED_CLUSTER_SIZES[-1]} blocks")
 
 
 def lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
@@ -102,12 +135,33 @@ def _outputs(like):
                  for _ in range(3))
 
 
+@lru_cache(maxsize=None)
+def _gn_entry():
+    entry = build.load_library().ofri_lk_gn
+    entry.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
+
+
+@lru_cache(maxsize=None)
+def _fused_entry():
+    entry = build.load_library().ofri_lk_fused
+    entry.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
+
+
 def lk_gn_iterate(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
                   n_iter: int, R: int, hw: int):
     """Run the LK Gauss-Newton loop; returns (px, py, status).
 
     CPU tensors run ``lk_gn_iterate_plain``; CUDA tensors launch the kernel,
-    one thread per pixel for all ``n_iter`` steps.
+    a thread a pixel, each to its first inactive step.  The inputs must keep
+    the contract in the module's docstring (finite, no -0 origin); nothing
+    here checks it.
     """
     if ia11.device.type == "cpu":
         return lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
@@ -120,10 +174,7 @@ def lk_gn_iterate(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
     build.check_tensor("lk_gn_iterate", t1, (nshift * nshift, h, w), dev)
     build.check_tensor("lk_gn_iterate", t2, (nshift * nshift, h, w), dev)
     px, py, status = _outputs(ia11)
-    entry = build.load_library().ofri_lk_gn
-    entry.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    entry = _gn_entry()
     stream = torch.cuda.current_stream(dev).cuda_stream
     lk_gn_iterate.launches += 1
     rc = entry(t1.data_ptr(), t2.data_ptr(), *(f.data_ptr() for f in fields), px.data_ptr(),
@@ -141,9 +192,11 @@ def lk_fused(slab, g_pair, ia11, ia12, ia22, c1, c2, act0, px0, py0,
     """Build the planes (two-level order) and run the GN loop in one launch;
     returns (px, py, status).
 
-    CPU tensors run ``lk_fused_plain``; CUDA tensors launch the kernel.  The
-    planes of an 8x16 pixel tile live in shared memory, which bounds R
-    (R = 5 needs 144 KB; R = 6, 193 KB).
+    CPU tensors run ``lk_fused_plain``; CUDA tensors launch the kernel: a
+    cluster of blocks per 32x32 pixel tile holds the tile's planes in its
+    shared memory (``fused_plan``; R <= 7), and raises where R's planes do
+    not fit or the cluster cannot be scheduled.  The inputs must keep the
+    contract in the module's docstring, as for ``lk_gn_iterate``.
     """
     if ia11.device.type == "cpu":
         return lk_fused_plain(slab, g_pair, ia11, ia12, ia22, c1, c2, act0, px0, py0,
@@ -154,19 +207,17 @@ def lk_fused(slab, g_pair, ia11, ia12, ia22, c1, c2, act0, px0, py0,
     if (h, w) != tuple(ia11.shape) or g_pair.device != ia11.device:
         raise ValueError(f"lk_fused: fields {tuple(ia11.shape)} on {ia11.device} do not "
                          f"match the slab's image {(h, w)} on {g_pair.device}")
+    cluster = fused_plan(R)[0]
     dev = ia11.device
     px, py, status = _outputs(ia11)
     ty, tx = run_table(runs_y), run_table(runs_x)
-    entry = build.load_library().ofri_lk_fused
-    entry.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    entry = _fused_entry()
     stream = torch.cuda.current_stream(dev).cuda_stream
     lk_fused.launches += 1
     rc = entry(slab.data_ptr(), g_pair.data_ptr(), *(f.data_ptr() for f in fields),
                px.data_ptr(), py.data_ptr(), status.data_ptr(), h, w, int(n_iter), int(R),
                int(hw), clip_hi(R), ctypes.cast(ty, ctypes.c_void_p),
-               ctypes.cast(tx, ctypes.c_void_p), dev.index or 0, stream)
+               ctypes.cast(tx, ctypes.c_void_p), cluster, dev.index or 0, stream)
     build.check(rc, "lk_fused")
     return px, py, status
 

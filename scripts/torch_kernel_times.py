@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's HS Jacobi (K1/K2), Liu-Shen solve (K4/K5), LK plane build
-(K6) and Farneback window blur + solve (K12/K13) kernels on one GPU.
+(K6), LK Gauss-Newton (K7) and fused LK (K8) and Farneback window blur +
+solve (K12/K13) kernels on one GPU.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--shapes 512 2048]
         [--hs-steps 4 8 16] [--hs-niters 100] [--ls-steps 4 8 12]
@@ -10,7 +11,13 @@ For each square shape: HS (alpha 21, random derivatives of two uniform
 frames, zero flow); Liu-Shen (h = 10, fields of two uniform frames, zero
 flow, 60 steps) with tol = 0 and with a tol that stops the plain solve near
 step 30; the LK build at half window 13, R = 5 (121 shifts, the symmetric
-window) on a rolled noisy random pair; the FB blur + solve at 33 taps, the
+window) on a rolled noisy random pair; the LK GN loop (5 steps) on two
+inputs, the configs' own (the arguments ``lk_gn_iterate`` receives in one
+``run_config("LK_Fs2_0")`` on the particle pair of that shape, seed 0) and a
+random per-pixel flow of |d| <= 4 on the rolled pair's planes, each with
+the mean GN steps a pixel runs (``chip_smoke.gn_exit``) and, on the
+configs' input, right after the build that writes its planes; the fused LK
+solve on the configs' input; the FB blur + solve at 33 taps, the
 Gaussian ("mirror") and the box ("nearest", post-scale 1/33^2) window, on
 the M of a particle pair at zero flow.  Per kernel call it prints one JSON
 line with
@@ -46,7 +53,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-from chip_smoke import bound_ms, kernel_costs  # noqa: E402
+from chip_smoke import bound_ms, capture_lk_args, gn_exit, kernel_costs  # noqa: E402
 
 
 def main() -> None:
@@ -73,6 +80,7 @@ def main() -> None:
     from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
     from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
     from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build
+    from opticalflow_ri_tpu_torch.ops.cuda import lk_iter
     from opticalflow_ri_tpu_torch.ops.cuda import tent_sample
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
@@ -235,7 +243,74 @@ def main() -> None:
             emit(kernel="lk_build", shape=list(shape), shifts=121, event_ms=k, plain_event_ms=p,
                  device_ms=device_ms(kernel, 10 if n <= 1024 else 3), host_ms=host_ms(kernel, reps),
                  bound_ms=b, bound_by=by)
-            del slab, g_pair
+            # K7 on two inputs: the configs' own (what lk_gn_iterate receives in
+            # one run_config("LK_Fs2_0") on the particle pair of this shape: a
+            # smooth flow from u0 = v0 = 0) and a random per-pixel flow of
+            # |d| <= 4 on the rolled pair's planes (chip_smoke's parity input)
+            im_a, im_b, _, _ = particle_image_pair(shape=shape, seed=0)
+            bargs, cfg_gn = capture_lk_args(run_config, lk_build, lk_iter, "LK_Fs2_0",
+                                            torch.as_tensor(im_a, device=dev),
+                                            torch.as_tensor(im_b, device=dev))
+            t1, t2 = kernel()
+            rand_fields = lk_kernel_inputs(torch.as_tensor(a, device=dev),
+                                           torch.as_tensor(bimg, device=dev),
+                                           rand(shape, -4, 4), rand(shape, -4, 4))[2]
+            inputs = {"configs (LK_Fs2_0)": cfg_gn, "random |d|<=4": (t1, t2, *rand_fields,
+                                                                       5, 5, 13)}
+            for label, gargs in inputs.items():
+                steps = float(gn_exit(lk_iter, *gargs)[3].double().mean())
+                same = all(torch.equal(g, w_) for g, w_ in
+                           zip(lk_iter.lk_gn_iterate(*gargs), lk_iter.lk_gn_iterate_plain(*gargs)))
+                b, by = bound_ms(*kernel_costs(n, n, gn_steps=steps)["lk_gn"])
+
+                def gn(gargs=gargs):
+                    return lk_iter.lk_gn_iterate(*gargs)
+
+                def gn_plain(gargs=gargs):
+                    return lk_iter.lk_gn_iterate_plain(*gargs)
+
+                k, p = ab(gn, gn_plain, reps)
+                emit(kernel="lk_gn", shape=list(shape), input=label, n_iter=gargs[-3],
+                     mean_steps=steps, bitwise=same, event_ms=k, plain_event_ms=p,
+                     device_ms=device_ms(gn, 20), host_ms=host_ms(gn, reps), bound_ms=b,
+                     bound_by=by)
+            # K7 right after K6 writes the planes (evict-first stores), against
+            # K7 replayed on planes a previous K7 left in L2: the configs' input
+            cfg_fields = cfg_gn[2:]
+
+            def build_cfg():
+                return lk_build.lk_build_planes(*bargs)
+
+            def build_then_gn():
+                return lk_iter.lk_gn_iterate(*build_cfg(), *cfg_fields)
+
+            t_build, t_both = device_ms(build_cfg, 10), device_ms(build_then_gn, 10)
+            emit(kernel="lk_gn", shape=list(shape), input="configs (LK_Fs2_0)",
+                 after="lk_build in the same graph", build_device_ms=t_build,
+                 build_and_gn_device_ms=t_both, gn_after_build_device_ms=t_both - t_build)
+            # K8 on the configs' input: the build's slab, gradients and runs,
+            # the GN's fields
+            fargs = (bargs[0], bargs[1], *cfg_fields[:8], cfg_fields[8], bargs[3], bargs[2],
+                     bargs[4], bargs[5])
+
+            def fused():
+                return lk_iter.lk_fused(*fargs)
+
+            def fused_plain():
+                return lk_iter.lk_fused_plain(*fargs)
+
+            steps = float(gn_exit(lk_iter, *cfg_gn)[3].double().mean())
+            b, by = bound_ms(*kernel_costs(n, n, gn_steps=steps)["lk_fused"])
+            same = all(torch.equal(g, w_) for g, w_ in zip(fused(), fused_plain()))
+            k, p = ab(fused, fused_plain, reps if n <= 1024 else 3)
+            emit(kernel="lk_fused", shape=list(shape), input="configs (LK_Fs2_0)",
+                 bitwise=same, event_ms=k, plain_event_ms=p,
+                 device_ms=device_ms(fused, 10 if n <= 1024 else 3),
+                 build_only_device_ms=device_ms(
+                     lambda: lk_iter.lk_fused(*fargs[:10], 0, *fargs[11:]),
+                     10 if n <= 1024 else 3),
+                 host_ms=host_ms(fused, reps), bound_ms=b, bound_by=by)
+            del slab, g_pair, t1, t2, bargs, cfg_gn, inputs, rand_fields, fargs
             torch.cuda.empty_cache()
         if "fb" not in args.skip:
             im_a, im_b, _, _ = particle_image_pair(shape=shape, seed=0)

@@ -12,12 +12,14 @@ relative, and the Liu-Shen stop comes at the same iteration, also when it
 falls inside one of the kernel's launches of T steps.  The HS kernel
 is held at every niter mod T (its iterations per launch) and at several T.
 The LK build equals its plain version bit for bit, with the symmetric, the
-asymmetric and a four-run window; the GN loop and the fused build+GN are
-held to 1.2e-4 on the window origins with status equal, and are expected to
-be bit-identical.  The three Farneback kernels
+asymmetric and a four-run window; so do the GN loop (px, py and status, on
+inputs whose pixels stop at every step from 0 to 5) and the fused build+GN
+(clusters of 8 and of 16, the three windows, a partial last tile).  The three Farneback kernels
 (updateMatrices, window blur + solve, the fused loop) equal their plain
 versions bit for bit.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_ex
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
 from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
 from opticalflow_ri_tpu_torch.ops.cuda import (
-    blur5_flow, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
+    blur5_flow, build, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
 )
 from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
@@ -207,7 +209,6 @@ def test_liu_shen_pipeline_on_card_matches_cpu(dev, name):
 
 # ---------------------------------------------------------------- dense LK
 
-LK_BAR = 1.2e-4
 LK_NAMES = ["denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
             "LK_Fs2_0", "LK_Fs2_0_PyrLvls2"]
 ASYMS = [(0, 0, 0, 0), (1, 0, 0, 1), (0, 1, 0, 1)]
@@ -250,9 +251,40 @@ def test_lk_build_kernel_equals_plain(dev, shape, window):
 
 
 def _lk_check(got, want):
-    for g, w in zip(got[:2], want[:2]):
-        assert float((g - w).abs().max()) <= LK_BAR
-    assert torch.equal(got[2], want[2])
+    """px, py and status bit for bit."""
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _lk_gn_input(dev, shape, case):
+    """(t1, t2, fields) of the GN kernel: the rolled pair's planes with a
+    calibrated or a wild random flow; the particle pair from zero flow (the
+    configs' smooth input); or 'stops': a flat band (singular windows), some
+    origins beyond the bail bounds, the rest |d| <= 4, so that pixels end
+    their loop at every step from 0 to 5."""
+    if case == "smooth":
+        im1, im2, _, _ = particle_image_pair(shape=shape, seed=0)
+        z = torch.zeros(shape, device=dev)
+        slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
+            torch.tensor(im1, device=dev), torch.tensor(im2, device=dev), z, z)
+    elif case == "stops":
+        rng = np.random.default_rng(8)
+        a = rng.uniform(0, 255, shape).astype(np.float32)
+        a[:, : shape[1] // 4] = 7.0
+        b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+        u0, v0 = (rng.uniform(-4, 4, shape).astype(np.float32) for _ in range(2))
+        u0[::3, ::2] = 70.0
+        v0[1::4, 1::3] = -60.0
+        slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
+            *(torch.tensor(x, device=dev) for x in (a, b, u0, v0)))
+    else:
+        slab, g_pair, fields, runs_y, runs_x = _lk_problem(
+            dev, shape, dmax={"calibrated": 4.0, "wild": 20.0}[case])
+    planes = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
+    for f in (*planes, *fields):  # the kernels' contract on their inputs (lk_iter.py)
+        assert bool(torch.isfinite(f).all())
+    assert not bool(((fields[6] == 0) & torch.signbit(fields[6])).any())
+    return (*planes, *fields)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
@@ -269,17 +301,74 @@ def test_lk_gn_kernel_equals_plain(dev, shape, n_iter, dmax):
     _lk_check(got, want)
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517)])
+@pytest.mark.parametrize("shape", [(47, 61), (333, 517), (512, 512)])
+@pytest.mark.parametrize("case", ["calibrated", "wild", "smooth", "stops"])
+def test_lk_gn_kernel_exits_equal_plain(dev, shape, case):
+    """The per-pixel exit, n_iter 0, 1, 5."""
+    args = _lk_gn_input(dev, shape, case)
+    for n_iter in (0, 1, 5):
+        got = lk_iter.lk_gn_iterate(*args, n_iter, 5, 13)
+        want = lk_iter.lk_gn_iterate_plain(*args, n_iter, 5, 13)
+        torch.cuda.synchronize()
+        _lk_check(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517), (512, 512)])
 @pytest.mark.parametrize("n_iter", [0, 1, 5])
-@pytest.mark.parametrize("asym", ASYMS[:2])
-def test_lk_fused_kernel_equals_plain(dev, shape, n_iter, asym):
-    slab, g_pair, fields, runs_y, runs_x = _lk_problem(dev, shape, asym)
+@pytest.mark.parametrize("asym", ASYMS[:2] + ["four_runs"], ids=str)
+@pytest.mark.parametrize("R", [5, 2])
+def test_lk_fused_kernel_equals_plain(dev, shape, n_iter, asym, R):
+    rng = np.random.default_rng(4)
+    a = rng.uniform(0, 255, shape).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+    u0, v0 = (torch.tensor(rng.uniform(-20, 20, shape).astype(np.float32), device=dev)
+              for _ in range(2))
+    slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
+        torch.tensor(a, device=dev), torch.tensor(b, device=dev), u0, v0,
+        asym=asym if asym != "four_runs" else (0, 0, 0, 0), max_shift=R)
+    if asym == "four_runs":
+        runs_y, runs_x = FOUR_RUNS_Y, FOUR_RUNS_X
     before = lk_iter.lk_fused.launches
-    got = lk_iter.lk_fused(slab, g_pair, *fields, n_iter, 5, 13, runs_y, runs_x)
-    want = lk_iter.lk_fused_plain(slab, g_pair, *fields, n_iter, 5, 13, runs_y, runs_x)
+    got = lk_iter.lk_fused(slab, g_pair, *fields, n_iter, R, 13, runs_y, runs_x)
+    want = lk_iter.lk_fused_plain(slab, g_pair, *fields, n_iter, R, 13, runs_y, runs_x)
     torch.cuda.synchronize()
     assert lk_iter.lk_fused.launches == before + 1
     _lk_check(got, want)
+
+
+@pytest.mark.parametrize("shape,R", [((2048, 2048), 5), ((333, 517), 6), ((333, 517), 7)],
+                         ids=["2048-R5", "333x517-R6", "333x517-R7"])
+def test_lk_fused_kernel_large_and_clusters_equal_plain(dev, shape, R):
+    """2048^2, and clusters of 16 blocks (R = 6 and 7 need them)."""
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0, 255, shape).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+    u0, v0 = (torch.tensor(rng.uniform(-4, 4, shape).astype(np.float32), device=dev)
+              for _ in range(2))
+    slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
+        torch.tensor(a, device=dev), torch.tensor(b, device=dev), u0, v0, max_shift=R)
+    assert lk_iter.fused_plan(R)[0] == (8 if R <= 5 else 16)
+    got = lk_iter.lk_fused(slab, g_pair, *fields, 5, R, 13, runs_y, runs_x)
+    want = lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, R, 13, runs_y, runs_x)
+    torch.cuda.synchronize()
+    _lk_check(got, want)
+
+
+def test_lk_fused_plan_matches_kernel(dev):
+    """The wrapper's plan asks for the shared memory the kernel computes,
+    and an R whose planes fit no cluster raises before any launch."""
+    lib = build.load_library()
+    lib.ofri_lk_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ofri_lk_fused_smem_bytes.restype = ctypes.c_size_t
+    for R in range(1, 8):
+        size, _, nbytes = lk_iter.fused_plan(R)
+        assert lib.ofri_lk_fused_smem_bytes(R, size) == nbytes
+    slab, g_pair, fields, runs_y, runs_x = _lk_problem(dev, (16, 24))
+    before = lk_iter.lk_fused.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        lk_iter.lk_fused(torch.zeros((16 + 31 + 16, 24 + 31 + 16), device=dev), g_pair,
+                         *fields, 5, 8, 13, runs_y, runs_x)
+    assert lk_iter.lk_fused.launches == before
 
 
 def test_lk_wrappers_reject_bad_tensors(dev):

@@ -27,6 +27,7 @@ Here:
     ascending order from -0) against ``ops/stencil.correlate1d`` bit for bit.
 """
 
+import importlib.util
 import math
 import re
 from pathlib import Path
@@ -36,10 +37,10 @@ import pytest
 import torch
 
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
-from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build
+from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter
 from opticalflow_ri_tpu_torch.ops.padding import _pad_index
 from opticalflow_ri_tpu_torch.ops.stencil import TWELFTH, correlate1d
-from opticalflow_ri_tpu_torch.ops.window_sums import _smooth_factorization, wsum2d
+from opticalflow_ri_tpu_torch.ops.window_sums import _smooth_factorization, base_width, wsum2d
 
 CSRC = Path(hs_iter.__file__).resolve().parents[2] / "csrc"
 
@@ -495,3 +496,238 @@ def test_fb_sliding_blur_and_solve_equals_plain(window):
     want = blur5_flow.blur5_flow_plain(torch.from_numpy(m), taps, mode, scale)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---------------------------------------------------------------- LK GN: the per-pixel exit
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", CSRC.parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+GN_EXIT = _load_chip_smoke().gn_exit
+
+
+def _gn_exit_model(t1, t2, fields, n_iter, R, hw):
+    """csrc/lk_iter.cu's GN loop with its per-pixel exit: chip_smoke.py's
+    ``gn_exit``, the one model of it (the card scripts count a pixel's steps
+    with it).  Returns (px, py, status, steps a pixel ran)."""
+    return GN_EXIT(lk_iter, t1, t2, *fields, n_iter, R, hw)
+
+
+def _gn_problem(case, shape=(24, 40), R=5, seed=21):
+    """The GN kernel's inputs from lk_kernel_inputs on a rolled noisy pair:
+    'calibrated' (|d| <= 4), 'wild' (|d| <= 20), 'singular' (a flat band, so
+    windows there are singular), 'bail' (some origins outside the bail
+    bounds at step 0) and 'zero' (u0 = +-0 on the column where px0 = 0)."""
+    from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
+
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 255, shape).astype(np.float32)
+    if case == "singular":
+        a[:, : shape[1] // 2] = 7.0
+    b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+    dmax = 20.0 if case == "wild" else 4.0
+    u0, v0 = (rng.uniform(-dmax, dmax, shape).astype(np.float32) for _ in range(2))
+    if case == "bail":
+        u0[::3, ::2] = 70.0
+        v0[1::4, 1::3] = -60.0
+    if case == "zero":
+        u0[:, 13] = 0.0
+        u0[::2, 13] = -0.0
+    slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
+        torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(u0), torch.from_numpy(v0),
+        max_shift=R)
+    t1, t2 = lk_build.lk_build_planes_plain(slab, g_pair, 13, R, runs_y, runs_x)
+    return t1, t2, fields
+
+
+GN_CASES = ["calibrated", "wild", "singular", "bail", "zero"]
+
+
+@pytest.mark.parametrize("case", GN_CASES)
+@pytest.mark.parametrize("n_iter", [0, 1, 5])
+def test_lk_gn_exit_model_equals_plain(case, n_iter):
+    """Ending a pixel's loop at its first inactive step changes nothing, bit
+    for bit; the premises hold on the LK solve's inputs: finite fields and
+    planes, and no -0 among the origins."""
+    t1, t2, fields = _gn_problem(case)
+    for f in (t1, t2, *fields):
+        assert bool(torch.isfinite(f).all())
+    px0 = fields[6]
+    assert not bool(((px0 == 0) & torch.signbit(px0)).any())
+    got = _gn_exit_model(t1, t2, fields, n_iter, 5, 13)
+    want = lk_iter.lk_gn_iterate_plain(t1, t2, *fields, n_iter, 5, 13)
+    for g, w_ in zip(got[:3], want):
+        assert torch.equal(g, w_)
+        assert not bool(((g == 0) & torch.signbit(g)).any())
+    steps = got[3]
+    if case == "singular":
+        assert bool((steps[fields[5] == 0] == 0).all()) and bool((fields[5] == 0).any())
+    if case == "bail" and n_iter:
+        assert bool(((steps == 0) & (fields[5] != 0) & (want[2] == 0)).any())
+    if case == "zero":
+        assert bool((px0[:, 13] == 0).all())  # column 13 plus +-0 minus the half window 13
+
+
+def test_lk_gn_exit_covers_every_step():
+    """Over the cases, pixels end their loop at every step from 0 to 5."""
+    seen = set()
+    for case in GN_CASES:
+        t1, t2, fields = _gn_problem(case)
+        seen |= set(_gn_exit_model(t1, t2, fields, 5, 5, 13)[3].unique().tolist())
+    assert seen == set(range(6))
+
+
+# ---------------------------------------------------------------- LK fused: tile and passes
+
+def test_lk_fused_constants_match_kernel():
+    text = (CSRC / "lk_iter.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    assert const["kTile"] == lk_iter.FUSED_TILE
+    assert const["kSegY"] == FUSED_SEG_Y
+    assert const["kSlots"] == lk_iter.FUSED_SLOTS
+    assert "227 * 1024" in text and lk_iter.MAX_SMEM_BYTES == 227 * 1024
+    for L in range(1, lk_build.GRID + 1):
+        # the kernel's base_width: the least a with a (a + 1) >= L
+        a = next(a for a in range(1, L + 1) if a * (a + 1) >= L)
+        assert a == base_width(L), L
+
+
+@pytest.mark.parametrize("R", [1, 2, 5, 6, 7])
+def test_lk_fused_plan_partitions_shifts(R):
+    size, per, nbytes = lk_iter.fused_plan(R)
+    assert size == (8 if R <= 5 else 16)
+    assert nbytes <= lk_iter.MAX_SMEM_BYTES
+    nplanes = (2 * R + 1) ** 2
+    owners = {}
+    for rank in range(size):
+        mine = (nplanes - rank + size - 1) // size  # the kernel's count
+        assert mine <= per
+        for j in range(mine):
+            owners.setdefault(rank + size * j, []).append((rank, j))
+    assert sorted(owners) == list(range(nplanes))
+    assert all(len(o) == 1 for o in owners.values())
+    with pytest.raises(ValueError, match="do not fit"):
+        lk_iter.fused_plan(8)
+
+
+FUSED_SEG_Y = 16  # y-pass outputs a thread of csrc/lk_iter.cu sums; the x-pass takes a tile row
+
+
+def _segment_twolevel(x, runs, out_len, seg):
+    """csrc/lk_iter.cu's per-thread two-level sum along the last axis of x:
+    each thread takes ``seg`` outputs, copies the inputs it needs, forms the
+    base box in place (ascending), then adds the b strided base terms and the
+    remainder taps re-read from x; run terms added in run order."""
+    n_seg = -(-out_len // seg)
+    pad = n_seg * seg + lk_build.EXT - x.shape[-1]
+    xp = np.concatenate([x, np.zeros(x.shape[:-1] + (max(pad, 0),), np.float32)], axis=-1)
+    out = np.zeros(x.shape[:-1] + (n_seg * seg,), np.float32)
+    for s0 in range(0, n_seg * seg, seg):
+        acc = None
+        for lo, hi in runs:
+            L = hi - lo + 1
+            a = base_width(L)
+            b = L // a
+            nb = seg + a * (b - 1)
+            v = [xp[..., s0 + lo + i].copy() for i in range(nb + a - 1)]
+            for i in range(nb):
+                s = v[i]
+                for j in range(1, a):
+                    s = s + v[i + j]
+                v[i] = s
+            term = []
+            for k in range(seg):
+                t = v[k]
+                for j in range(1, b):
+                    t = t + v[k + a * j]
+                for j in range(a * b, L):
+                    t = t + xp[..., s0 + lo + k + j]
+                term.append(t)
+            term = np.stack(term, axis=-1)
+            acc = term if acc is None else acc + term
+        out[..., s0:s0 + seg] = acc
+    return out[..., :out_len]
+
+
+@pytest.mark.parametrize("runs", [((0, 26),), ((0, 7), (9, 26)), ((0, 25),),
+                                  ((0, 3), (5, 10), (12, 26), (28, 31)), ((0, 31),), ((4, 4),)],
+                         ids=["sym27", "near", "far", "four_runs", "full32", "single"])
+@pytest.mark.parametrize("shape", [(5, 7), (32, 32), (33, 70)])
+def test_lk_segment_twolevel_equals_wsum(runs, shape):
+    """The x-pass a tile row a thread (32 outputs), the y-pass 16 outputs a
+    thread, against the two-level window sum."""
+    rng = np.random.default_rng(12)
+    h, w = shape
+    x = rng.normal(0, 100, (h + lk_build.EXT, w + lk_build.EXT)).astype(np.float32)
+    t = _segment_twolevel(x, runs, w, lk_iter.FUSED_TILE)
+    got = _segment_twolevel(t.T.copy(), runs, h, FUSED_SEG_Y).T
+    want = wsum2d(torch.from_numpy(x), runs, runs, 13, h, w, hierarchical=True).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _fused_tile_model(slab, g_pair, R, runs_y, runs_x, size):
+    """csrc/lk_iter.cu's build, cluster by cluster: each block of a tile's
+    cluster stages the tile's J rows and gradients (0 outside the slab and
+    the core), builds its shifts s = rank + size j over the tile's halo with
+    the per-thread passes, and keeps them in its own planes.  Returns the
+    (nplanes, h, w) stacks read back through the owner rule, and how often
+    each (plane, gradient, pixel) of each tile was written."""
+    tile = lk_iter.FUSED_TILE
+    rows = tile + lk_build.EXT
+    nshift = 2 * R + 1
+    nplanes = nshift * nshift
+    core_h, core_w = g_pair.shape[1:]
+    h, w = core_h - lk_build.EXT, core_w - lk_build.EXT
+    jn = rows + 2 * R
+    th, tw = -(-h // tile), -(-w // tile)
+    out = np.full((2, nplanes, th * tile, tw * tile), np.nan, np.float32)
+    writes = np.zeros((th, tw, nplanes, 2, tile, tile), np.int64)
+    for ty in range(th):
+        for tx in range(tw):
+            y0, x0 = ty * tile, tx * tile
+            J = np.zeros((jn, jn), np.float32)
+            src = slab[y0:y0 + jn, x0:x0 + jn]
+            J[:src.shape[0], :src.shape[1]] = src
+            G = np.zeros((2, rows, rows), np.float32)
+            src = g_pair[:, y0:y0 + rows, x0:x0 + rows]
+            G[:, :src.shape[1], :src.shape[2]] = src
+            for rank in range(size):
+                mine = (nplanes - rank + size - 1) // size
+                shifts = [rank + size * j for j in range(mine)]
+                if not shifts:
+                    continue
+                P = np.stack([J[s // nshift:s // nshift + rows, s % nshift:s % nshift + rows]
+                              for s in shifts])[:, None] * G[None]
+                X = _segment_twolevel(P, runs_x, tile, tile)
+                Y = np.swapaxes(_segment_twolevel(np.swapaxes(X, -1, -2).copy(), runs_y, tile,
+                                                  FUSED_SEG_Y), -1, -2)
+                for j, s in enumerate(shifts):
+                    for k in range(2):
+                        out[k, s, y0:y0 + tile, x0:x0 + tile] = Y[j, k]
+                        writes[ty, tx, s, k] += 1
+    return out[:, :, :h, :w], writes
+
+
+@pytest.mark.parametrize("shape,R", [((47, 61), 5), ((47, 61), 2), ((33, 40), 1), ((20, 70), 6)])
+def test_lk_fused_tile_model_equals_plain(shape, R):
+    """Every (plane, gradient, pixel) of every tile is built by exactly one
+    block, the staged halo covers the window at every tile edge (a partial
+    last tile included), and the planes equal the plain two-level build."""
+    from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
+
+    rng = np.random.default_rng(13)
+    a = rng.uniform(0, 255, shape).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
+    z = torch.zeros(shape)
+    slab, g_pair, _, runs_y, runs_x = lk_kernel_inputs(torch.from_numpy(a), torch.from_numpy(b),
+                                                       z, z, asym=(1, 0, 0, 1), max_shift=R)
+    size = lk_iter.fused_plan(R)[0]
+    got, writes = _fused_tile_model(slab.numpy(), g_pair.numpy(), R, runs_y, runs_x, size)
+    assert bool((writes == 1).all())
+    want = lk_build.lk_build_planes_plain(slab, g_pair, 13, R, runs_y, runs_x, hierarchical=True)
+    for k in range(2):
+        np.testing.assert_array_equal(got[k], want[k].numpy())
