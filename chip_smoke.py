@@ -32,12 +32,14 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                and wild flows, and the exact gather at 512^2; the Farneback
                window blur + solve bit for bit at the Liu-Shen shapes, 1, 3,
                33 and 129 taps, both window modes and a post-scale; the
-               fused Farneback loop at 512^2 and 333x517 in both modes);
+               fused Farneback loop bit for bit at those shapes, 0, 1, 2 and
+               5 rounds, 1, 3, 33 and 129 taps, both modes, a post-scale and
+               the exact gather);
   4. main    — the five HS configurations, the README's wrapper call, the
                four Liu-Shen configurations, the five dense-LK ones, the
                fused LK solve (``lk_dense_solve(impl="fused")``), the five
                Farneback ones and the fused Farneback loop (``fb_fused`` on
-               the level-0 expansions, held against ``farneback_solve``) on
+               the level-0 expansions, bit for bit ``farneback_solve``) on
                a 512^2 synthetic pair, launch counters reset just before,
                each Liu-Shen call's k printed;
                flows held against the port's plain path on the CPU (AEE <=
@@ -47,8 +49,10 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
   5. times   — CUDA-event medians, kernel path against plain PyTorch on the
                card, per configuration and per kernel at 512^2 and 2048^2;
                the device time per call (a CUDA graph replayed back to
-               back; at 2048^2 for the HS, Liu-Shen, LK and FB blur
-               kernels) beside the bound; the LK GN and fused kernels on
+               back; at 2048^2 for the HS, Liu-Shen, LK, FB blur and fused
+               FB kernels) beside the bound; the fused FB loop beside its
+               yardstick, the same rounds as K9 then K12 in one graph
+               (``unfused_device_ms``); the LK GN and fused kernels on
                the configs' own input, the GN also on a random flow, with
                the mean GN steps a pixel runs (``gn_exit``), and the GN's
                device time on the path: the build then the GN in one graph,
@@ -86,7 +90,6 @@ AEE_BAR = 5e-6         # card against the CPU plain path, whole pipeline
 GOLDEN_BAR = 1e-3      # tests/test_golden.py
 FB_GOLDEN_BAR = 2e-3   # tests/test_golden.py:test_fb_golden
 FB_M_BAR = 1e-6        # the Farneback M, relative to max|M|
-FB_FLOW_BAR = 1e-4     # the Farneback flow, absolute (the JAX blur5 and fused kernels' bar)
 REPS = 15
 REPS_2048 = 5          # the LK and FB kernels' A/B at 2048^2, where one plain call takes ~0.1 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -109,11 +112,12 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_costs(h: int, w: int, hs_niter: int = 100, gn_steps: float = 5) -> dict:
+def kernel_costs(h: int, w: int, hs_niter: int = 100, gn_steps: float = 5,
+                 fb_rounds: int = 5) -> dict:
     """(bytes, operations) of one call of each kernel on an h x w image, as
     the times phase calls it (HS at ``hs_niter`` iterations, LK at R = 5 and
-    ``gn_steps`` GN steps per pixel on average, FB at R = 5, 33 taps and 5
-    rounds, Liu-Shen at 60 steps):
+    ``gn_steps`` GN steps per pixel on average, FB at R = 5, 33 taps and
+    ``fb_rounds`` rounds of the fused loop, Liu-Shen at 60 steps):
     each input read once and each output written
     once; operations are the kernel's float arithmetic per pixel, from its
     source (HS: 27 per iteration and 5 for the reciprocal; warp: 36 per image;
@@ -123,7 +127,8 @@ def kernel_costs(h: int, w: int, hs_niter: int = 100, gn_steps: float = 5) -> di
     kernels end a pixel's loop at its first inactive step); the fused LK
     build: the two-level sums' 10 adds per pass; FB updateMatrices ~100; FB
     blur + solve: 5 planes, 2 passes of 33 taps, a product and a sum each,
-    and the solve)."""
+    and the solve; the fused loop: both a round, reading R0, R1 and the start
+    flow and writing the flow, or at 0 rounds copying the flow)."""
     n = h * w
     core = (h + 31) * (w + 31)       # the LK gradient pair's planes
     slab = (h + 41) * (w + 41)       # the LK J slab at R = 5
@@ -136,7 +141,7 @@ def kernel_costs(h: int, w: int, hs_niter: int = 100, gn_steps: float = 5) -> di
         "lk_fused": (4 * (slab + 2 * core + 11 * n), (2 * 121 * 21 + 60 * gn_steps) * n),
         "fb_update_matrices": (68 * n, 100 * n),
         "fb_blur5_flow": (28 * n, (5 * 2 * 33 * 2 + 15) * n),
-        "fb_fused": (56 * n, 5 * (100 + 675) * n),                   # 5 rounds
+        "fb_fused": ((56 if fb_rounds else 16) * n, fb_rounds * (100 + 675) * n),
     }
 
 
@@ -530,13 +535,6 @@ def main() -> None:
             torch.cuda.synchronize()
             fb_compare("fb_update_matrices", f"{shape} R={R} {label} |d|<={dmax}", [got], [want],
                        FB_M_BAR * float(want.abs().max()))
-        if shape != (2048, 2048):
-            for wname, (taps, mode, scale) in windows.items():
-                fx0, fy0 = rand(shape, -1, 1), rand(shape, -1, 1)
-                got = fb_fused.fb_fused(r0, r1, fx0, fy0, 5, taps, mode, scale)
-                want = fb_fused.fb_fused_plain(r0, r1, fx0, fy0, 5, taps, mode, scale)
-                torch.cuda.synchronize()
-                fb_compare("fb_fused", f"{shape} {wname} n_iters=5", got, want, FB_FLOW_BAR)
         del r0, r1, got, want
         torch.cuda.empty_cache()
 
@@ -564,6 +562,35 @@ def main() -> None:
                                          f"at {shape}, {n} taps, {wname}")
                 err["fb_blur5_flow"] = max(err["fb_blur5_flow"], d)
         del r0, r1, m, got, want
+        torch.cuda.empty_cache()
+
+    # the fused loop, bit for bit: every round count at the calibrated 33
+    # taps, the tap counts the tile blur treats apart, the exact gather; the
+    # blocks walk several tiles each from 333x517 up
+    for shape in shapes:
+        big = (max(shape[0], 16), max(shape[1], 16))
+        r0, r1 = (r[:, :shape[0], :shape[1]].contiguous() for r in fb_expansions(big))
+        fx0, fy0 = rand(shape, -1, 1), rand(shape, -1, 1)
+        cases = [(wname, 33, n_iters, 5) for n_iters in (0, 1, 2, 5)
+                 for wname in ("gaussian", "box", "gaussian-scaled")]
+        cases += [(wname, n, 2, 5) for n in (1, 3, 129)
+                  for wname in ("gaussian", "box", "gaussian-scaled")]
+        cases += [("gaussian", 33, n_iters, None) for n_iters in (1, 5)]
+        for wname, n, n_iters, R in cases:
+            taps, mode, scale = _window_blur_spec(n, wname != "box")
+            scale = 0.37 if wname == "gaussian-scaled" else scale
+            got = fb_fused.fb_fused(r0, r1, fx0, fy0, n_iters, taps, mode, scale, R)
+            want = fb_fused.fb_fused_plain(r0, r1, fx0, fy0, n_iters, taps, mode, scale, R)
+            torch.cuda.synchronize()
+            d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"fb_fused {shape} {wname} {n} taps ({mode}, scale {scale!r}) n_iters={n_iters} "
+                  f"R={R}: max|d|={d!r} (bar: bitwise) bitwise={same}")
+            if not same:
+                raise AssertionError(f"fb_fused disagrees with its plain version at {shape}, "
+                                     f"{n} taps, {wname}, n_iters={n_iters}, R={R}")
+            err["fb_fused"] = max(err["fb_fused"], d)
+        del r0, r1, got, want
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 4
@@ -687,8 +714,8 @@ def main() -> None:
     e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
     same = torch.equal(u, ref[0]) and torch.equal(v, ref[1])
     print(f"fb_fused_solve against farneback_solve(pyr_levels=1) on the card: AEE {e!r} "
-          f"(bar {AEE_BAR}) bitwise={same}")
-    if not e <= AEE_BAR:
+          f"(bar: bitwise, the same rounds) bitwise={same}")
+    if not same:
         raise AssertionError("the fused Farneback loop disagrees with farneback_solve")
 
     golden = np.load(GOLDEN)
@@ -815,7 +842,7 @@ def main() -> None:
 
     kernel_times, device_times, library_times, library_device_times = {}, {}, {}, {}
 
-    bounds, gn_after_build = {}, {}
+    bounds, gn_after_build, unfused_device = {}, {}, {}
 
     def time_kernel(name, shape, kernel_fn, plain_fn, reps, replays, key=None, gn=5, **info):
         """Event medians of kernel and plain in turns; the device time per
@@ -828,7 +855,7 @@ def main() -> None:
         kernel_times[key] = (k, p)
         rec = {"kernel": name, "shape": list(shape), **info, "kernel_ms": k, "plain_ms": p}
         if shape == (512, 512) or name in ("hs_jacobi", "liu_shen", "lk_build", "lk_gn",
-                                           "lk_fused", "fb_blur5_flow"):
+                                           "lk_fused", "fb_blur5_flow", "fb_fused"):
             device_times[key] = rec["device_ms"] = device_ms(kernel_fn, replays)
         bounds[key] = bound_ms(*kernel_costs(*shape, gn_steps=gn)[name])
         rec["bound_ms"], rec["bound_by"] = bounds[key]
@@ -927,6 +954,21 @@ def main() -> None:
                     lambda: fb_fused.fb_fused(r0, r1, z, z, 5, taps, mode, scale),
                     lambda: fb_fused.fb_fused_plain(r0, r1, z, z, 5, taps, mode, scale), reps, 10,
                     n_iters=5, window="gaussian 33")
+
+        def unfused():
+            """K14's yardstick: the same 5 rounds as K9 then K12 (fb_fused_plain's
+            sequence on the kernels), one CUDA graph."""
+            u, v = z, z
+            for _ in range(5):
+                u, v = fb_blur.blur5_flow(tent_sample.update_matrices(u, v, r0, r1), taps, mode,
+                                          scale)
+            return u, v
+
+        unfused_device[shape] = device_ms(unfused, 10)
+        print(json.dumps({"yardstick_of": "fb_fused", "shape": list(shape), "n_iters": 5,
+                          "unfused": "fb_update_matrices then fb_blur5_flow, 5 rounds, one graph",
+                          "unfused_device_ms": unfused_device[shape],
+                          "fb_fused_device_ms": device_times[("fb_fused", shape)], "gpu": gpu}))
         del r0, r1, fx, fy, m
         torch.cuda.empty_cache()
     for name, w in wrappers.items():
@@ -965,6 +1007,8 @@ def main() -> None:
             kern["device_ms_warm"] = kern["device_ms"]
             kern["device_ms"] = gn_after_build[(512, 512)]
             kern["device_ms_of"] = "lk_build then lk_gn in one CUDA graph, less lk_build alone"
+        if name == "fb_fused":  # the yardstick: the unfused rounds on the same input
+            kern["unfused_device_ms"] = unfused_device[(512, 512)]
         if (name, (512, 512)) in library_device_times:
             kern["library_device_ms"] = library_device_times[(name, (512, 512))]
         kernels.append(kern)

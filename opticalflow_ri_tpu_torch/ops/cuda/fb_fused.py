@@ -2,11 +2,16 @@
 version.
 
 ``fb_fused`` replaces the TPU kernel ``ops/pallas/fb_fused2.py:
-fb_fused2_pallas`` with one cooperative CUDA launch (``csrc/fb_fused.cu``):
-``n_iters`` rounds of updateMatrices, then the window blur and the 2x2
-solve, with grid-wide barriers between the phases.  ``fb_fused_plain`` runs
-the same rounds as ``update_matrices_plain`` -> ``blur5_flow_plain``; CPU
-tensors take it.  As in the JAX package, ``farneback_solve`` does not call it
+fb_fused2_pallas`` with one persistent cooperative CUDA launch
+(``csrc/fb_fused.cu``): M of the start flow, then ``n_iters`` rounds, each
+one grid barrier and then, tile by tile (``TILE_ROWS`` x ``TILE_COLS``
+pixels, the blocks walking the tiles), the window blur of M in shared memory
+(the tile routine of the blur + solve kernel), the 2x2 solve and M of the new
+flow.  M lives in two ping-pong buffers: a round reads one and writes the
+other, since its tiles' halos are other blocks' pixels.  The flow is written
+in the last round only.  ``fb_fused_plain`` runs the same rounds as
+``update_matrices_plain`` -> ``blur5_flow_plain``; CPU tensors take it.  As in
+the JAX package, ``farneback_solve`` does not call it
 (``models/farneback.py:395-399`` there); it is an entry of its own.
 
 r0, r1: (5, H, W) polynomial expansions; fx0, fy0: (H, W) initial flow.
@@ -16,6 +21,7 @@ Returns (flowx, flowy), each (H, W) float32.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -23,6 +29,8 @@ import torch
 from opticalflow_ri_tpu_torch.ops.cuda import build
 from opticalflow_ri_tpu_torch.ops.cuda.blur5_flow import blur5_flow_plain, check_window
 from opticalflow_ri_tpu_torch.ops.cuda.tent_sample import shift_args, update_matrices_plain
+
+TILE_ROWS, TILE_COLS = 32, 64  # csrc/fb_tile.cuh: kTH; csrc/fb_fused.cu: BlurTile<64>
 
 
 def fb_fused_plain(r0, r1, fx0, fy0, n_iters: int, taps, mode: str, scale: float = 1.0,
@@ -33,6 +41,16 @@ def fb_fused_plain(r0, r1, fx0, fy0, n_iters: int, taps, mode: str, scale: float
         m = update_matrices_plain(fx, fy, r0, r1, sample_max_shift)
         fx, fy = blur5_flow_plain(m, taps, mode, scale)
     return fx, fy
+
+
+@lru_cache(maxsize=None)
+def _entry():
+    entry = build.load_library().ofri_fb_fused
+    entry.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def fb_fused(r0, r1, fx0, fy0, n_iters: int, taps, mode: str, scale: float = 1.0,
@@ -55,18 +73,13 @@ def fb_fused(r0, r1, fx0, fy0, n_iters: int, taps, mode: str, scale: float = 1.0
     R, hi = shift_args(sample_max_shift)
     fx = torch.empty((h, w), dtype=torch.float32, device=dev)
     fy = torch.empty_like(fx)
-    m = torch.empty((5, h, w), dtype=torch.float32, device=dev)
-    mid = torch.empty_like(m)
+    m = torch.empty((2, 5, h, w), dtype=torch.float32, device=dev)  # M_a, M_b
     table = (ctypes.c_float * k.size)(*k.tolist())
-    entry = build.load_library().ofri_fb_fused
-    entry.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    entry = _entry()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fb_fused.launches += 1
     rc = entry(r0.data_ptr(), r1.data_ptr(), fx0.data_ptr(), fy0.data_ptr(), fx.data_ptr(),
-               fy.data_ptr(), m.data_ptr(), mid.data_ptr(), h, w, int(n_iters), R, hi,
+               fy.data_ptr(), m[0].data_ptr(), m[1].data_ptr(), h, w, int(n_iters), R, hi,
                ctypes.cast(table, ctypes.c_void_p), k.size, code, float(np.float32(scale)),
                dev.index or 0, stream)
     build.check(rc, "fb_fused")

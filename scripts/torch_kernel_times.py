@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's HS Jacobi (K1/K2), Liu-Shen solve (K4/K5), LK plane build
-(K6), LK Gauss-Newton (K7) and fused LK (K8) and Farneback window blur +
-solve (K12/K13) kernels on one GPU.
+(K6), LK Gauss-Newton (K7) and fused LK (K8), Farneback window blur + solve
+(K12/K13) and fused Farneback loop (K14) kernels on one GPU.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--shapes 512 2048]
         [--hs-steps 4 8 16] [--hs-niters 100] [--ls-steps 4 8 12]
@@ -19,8 +19,12 @@ the mean GN steps a pixel runs (``chip_smoke.gn_exit``) and, on the
 configs' input, right after the build that writes its planes; the fused LK
 solve on the configs' input; the FB blur + solve at 33 taps, the
 Gaussian ("mirror") and the box ("nearest", post-scale 1/33^2) window, on
-the M of a particle pair at zero flow.  Per kernel call it prints one JSON
-line with
+the M of a particle pair at zero flow; the fused FB loop on that pair's
+expansions from zero flow (33-tap Gaussian) at 0, 1 and 5 rounds (the
+fixed cost and the cost a round), with
+``unfused_device_ms``, the same rounds as K9 then K12 (``fb_fused_plain``'s
+sequence on the kernels) in one CUDA graph, and ``bitwise`` against the plain
+loop.  Per kernel call it prints one JSON line with
   * ``event_ms``: median of CUDA-event intervals around one synchronised call,
     the kernel and its plain PyTorch version in alternating turns, as
     ``chip_smoke.py`` times them;
@@ -80,7 +84,7 @@ def main() -> None:
     from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
     from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
     from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build
-    from opticalflow_ri_tpu_torch.ops.cuda import lk_iter
+    from opticalflow_ri_tpu_torch.ops.cuda import fb_fused, lk_iter
     from opticalflow_ri_tpu_torch.ops.cuda import tent_sample
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
@@ -332,6 +336,34 @@ def main() -> None:
                 emit(kernel="fb_blur5_flow", shape=list(shape), taps=33, window=window,
                      event_ms=k, plain_event_ms=p, device_ms=device_ms(kernel, 50),
                      host_ms=host_ms(kernel, reps), bound_ms=b, bound_by=by,
+                     issue_floor_ms=2 * b)
+            # K14 from zero flow, Gaussian window, at 0, 1 and 5 rounds (the
+            # fixed cost and the cost a round), beside the unfused loop: K9 then
+            # K12 each round (fb_fused_plain's sequence, on the kernels) as one
+            # CUDA graph
+            taps, mode, scale = _window_blur_spec(33, True)
+            for n_iters in (0, 1, 5):
+                def fused(n_iters=n_iters):
+                    return fb_fused.fb_fused(r0, r1, z, z, n_iters, taps, mode, scale)
+
+                def fused_plain(n_iters=n_iters):
+                    return fb_fused.fb_fused_plain(r0, r1, z, z, n_iters, taps, mode, scale)
+
+                def unfused(n_iters=n_iters):
+                    fx, fy = z, z
+                    for _ in range(n_iters):
+                        fx, fy = blur5_flow.blur5_flow(
+                            tent_sample.update_matrices(fx, fy, r0, r1), taps, mode, scale)
+                    return fx, fy
+
+                same = all(torch.equal(g, w_) for g, w_ in zip(fused(), fused_plain()))
+                k, p = ab(fused, fused_plain, reps)
+                b, by = bound_ms(*kernel_costs(n, n, fb_rounds=n_iters)["fb_fused"])
+                emit(kernel="fb_fused", shape=list(shape), n_iters=n_iters, taps=33,
+                     window="gaussian", bitwise=same, event_ms=k, plain_event_ms=p,
+                     device_ms=device_ms(fused, 20),
+                     unfused_device_ms=device_ms(unfused, 20) if n_iters else None,
+                     host_ms=host_ms(fused, reps), bound_ms=b, bound_by=by,
                      issue_floor_ms=2 * b)
             del r0, r1, m, z
             torch.cuda.empty_cache()

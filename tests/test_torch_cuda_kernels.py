@@ -16,7 +16,8 @@ asymmetric and a four-run window; so do the GN loop (px, py and status, on
 inputs whose pixels stop at every step from 0 to 5) and the fused build+GN
 (clusters of 8 and of 16, the three windows, a partial last tile).  The three Farneback kernels
 (updateMatrices, window blur + solve, the fused loop) equal their plain
-versions bit for bit.
+versions bit for bit; the fused loop from 2x2 to 2048^2, at 0 to 5 rounds,
+1 to 129 taps and with the exact gather.
 """
 
 import ctypes
@@ -471,16 +472,29 @@ def test_blur5_flow_kernel_equals_plain(dev, shape, window, n):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("shape", FB_SHAPES)
-@pytest.mark.parametrize("window", list(WINDOWS))
-@pytest.mark.parametrize("n_iters", [0, 1, 5])
-def test_fb_fused_kernel_equals_plain(dev, shape, window, n_iters):
+FUSED_SHAPES = FB_SHAPES + [(512, 512), (2048, 2048)]
+# (shape, window, taps, n_iters, sample_max_shift): every round count at the
+# calibrated 33 taps, the tap counts the tile blur treats apart at 2 rounds,
+# and the exact gather (R = None)
+FUSED_CASES = ([(s, win, 33, it, 5) for s in FUSED_SHAPES for win in BLUR_WINDOWS
+                for it in (0, 1, 5)]
+               + [(s, win, n, 2, 5) for s in [(47, 61), (512, 512)] for win in BLUR_WINDOWS
+                  for n in (1, 3, 129)]
+               + [(s, "gaussian", 33, it, None) for s in FUSED_SHAPES for it in (1, 5)])
+
+
+@pytest.mark.parametrize("shape,window,n,n_iters,R", FUSED_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{win}-{n}-{it}-R{R}"
+                              for s, win, n, it, R in FUSED_CASES])
+def test_fb_fused_kernel_equals_plain(dev, shape, window, n, n_iters, R):
+    """The persistent loop at 2x2 to 2048^2 (blocks walking several tiles),
+    0 to 5 rounds, 1 to 129 taps, both border rules and a post-scale."""
     r0, r1 = _fb_expansions(dev, shape)
     fx0, fy0 = _fb_flow(dev, shape, 1.0)
-    taps, mode, scale = WINDOWS[window]
+    taps, mode, scale = blur_window(window, n)
     before = fb_fused.fb_fused.launches
-    got = fb_fused.fb_fused(r0, r1, fx0, fy0, n_iters, taps, mode, scale)
-    want = fb_fused.fb_fused_plain(r0, r1, fx0, fy0, n_iters, taps, mode, scale)
+    got = fb_fused.fb_fused(r0, r1, fx0, fy0, n_iters, taps, mode, scale, R)
+    want = fb_fused.fb_fused_plain(r0, r1, fx0, fy0, n_iters, taps, mode, scale, R)
     torch.cuda.synchronize()
     assert fb_fused.fb_fused.launches == before + 1
     for g, w in zip(got, want):

@@ -24,7 +24,11 @@ Here:
     last step of a launch;
   * a NumPy model of the register-blocked sliding-window pass of
     ``csrc/fb_blur5_flow.cu`` (R outputs a thread, a ring of R inputs, taps in
-    ascending order from -0) against ``ops/stencil.correlate1d`` bit for bit.
+    ascending order from -0) against ``ops/stencil.correlate1d`` bit for bit;
+  * a NumPy model of the persistent schedule of ``csrc/fb_fused.cu`` (G
+    blocks walking T tiles, each tile blurred from its halo by the tile
+    routine's passes, M in two ping-pong buffers, the flow written in the last
+    round only) against ``fb_fused_plain`` bit for bit.
 """
 
 import importlib.util
@@ -37,7 +41,9 @@ import pytest
 import torch
 
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
-from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter
+from opticalflow_ri_tpu_torch.ops.cuda import (
+    blur5_flow, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample,
+)
 from opticalflow_ri_tpu_torch.ops.padding import _pad_index
 from opticalflow_ri_tpu_torch.ops.stencil import TWELFTH, correlate1d
 from opticalflow_ri_tpu_torch.ops.window_sums import _smooth_factorization, base_width, wsum2d
@@ -424,24 +430,20 @@ def test_ls_blocked_model_stop_equals_plain(shape, ext, T, where):
 
 # ---------------------------------------------------------------- Farneback window blur
 
-def _slide_pass(x, taps, mode, axis, R):
-    """One pass of csrc/fb_blur5_flow.cu along ``axis``, modelled in float32:
-    each thread sums R consecutive outputs from a ring of R inputs (input i
-    in slot i % R), the taps in ascending order from -0; the border a source
-    index rule, also for the run's outputs past the edge."""
+def _ring(xp, taps, R, nblk):
+    """``nblk`` runs of R outputs along the last axis of ``xp`` (which holds
+    at least nblk R + n - 1 inputs), as csrc/fb_tile.cuh's slide sums them in
+    float32: each thread's ring of R inputs (input i in slot i % R), the taps
+    in ascending order from -0."""
     f32 = np.float32
-    n, half = len(taps), len(taps) // 2
-    xs = np.moveaxis(x, axis, -1)
-    size = xs.shape[-1]
-    nblk = -(-size // R)
-    xp = xs[..., _pad_index(size, half, nblk * R + n - 1 - half - size, mode)]
-    out = np.empty(xs.shape[:-1] + (nblk * R,), f32)
+    n = len(taps)
+    out = np.empty(xp.shape[:-1] + (nblk * R,), f32)
     for b in range(nblk):
         base = b * R
         ring = [None] * R
         for q in range(R - 1):
             ring[q] = xp[..., base + q]
-        acc = [np.full(xs.shape[:-1], -0.0, f32) for _ in range(R)]
+        acc = [np.full(xp.shape[:-1], -0.0, f32) for _ in range(R)]
 
         def tap(j, q):
             ring[(q + R - 1) % R] = xp[..., base + j + R - 1]
@@ -458,7 +460,20 @@ def _slide_pass(x, taps, mode, axis, R):
             if j0 + q < n:
                 tap(j0 + q, q)
         out[..., base:base + R] = np.stack(acc, axis=-1)
-    return np.moveaxis(out[..., :size], -1, axis)
+    return out
+
+
+def _slide_pass(x, taps, mode, axis, R):
+    """One pass of csrc/fb_blur5_flow.cu along ``axis``, modelled in float32:
+    each thread sums R consecutive outputs from a ring of R inputs (``_ring``);
+    the border a source index rule, also for the run's outputs past the
+    edge."""
+    n, half = len(taps), len(taps) // 2
+    xs = np.moveaxis(x, axis, -1)
+    size = xs.shape[-1]
+    nblk = -(-size // R)
+    xp = xs[..., _pad_index(size, half, nblk * R + n - 1 - half - size, mode)]
+    return np.moveaxis(_ring(xp, taps, R, nblk)[..., :size], -1, axis)
 
 
 @pytest.mark.parametrize("n", [1, 3, 33, 129])
@@ -496,6 +511,108 @@ def test_fb_sliding_blur_and_solve_equals_plain(window):
     want = blur5_flow.blur5_flow_plain(torch.from_numpy(m), taps, mode, scale)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---------------------------------------------------------------- Farneback fused loop: schedule
+
+def test_fb_fused_tile_matches_kernel():
+    """The tile the wrapper documents and the model walks is the kernels'."""
+    tile = (CSRC / "fb_tile.cuh").read_text()
+    fused = (CSRC / "fb_fused.cu").read_text()
+    assert int(re.search(r"int kTH = (\d+);", tile).group(1)) == fb_fused.TILE_ROWS
+    assert int(re.search(r"int kR = (\d+);", tile).group(1)) == blur5_flow.OUTPUTS_PER_THREAD
+    assert int(re.search(r"BlurTile<(\d+)>", fused).group(1)) == fb_fused.TILE_COLS
+    assert "BlurTile<64>" in (CSRC / "fb_blur5_flow.cu").read_text()
+
+
+def _tile_blur(m, taps, mode, scale, y0, x0, tile, R):
+    """csrc/fb_tile.cuh's blur of the tile at (y0, x0): the source rows and
+    columns of its halo by the border rule (the tile's tables), the y-pass
+    and the x-pass as rings of R over them, the post-scale."""
+    th, tw = tile
+    n, half = len(taps), len(taps) // 2
+    _, h, w = m.shape
+    rows = _pad_index(h, th + n, th + n, mode)[th + n + y0 - half + np.arange(th + n - 1)]
+    cols = _pad_index(w, tw + n, tw + n, mode)[tw + n + x0 - half + np.arange(tw + n - 1)]
+    slab = m[:, rows][:, :, cols]
+    mid = np.swapaxes(_ring(np.swapaxes(slab, 1, 2), taps, R, th // R), 1, 2)
+    g = _ring(mid, taps, R, tw // R)
+    return g * np.float32(scale) if scale != 1.0 else g
+
+
+def _fb_persistent(r0, r1, fx0, fy0, n_iters, taps, mode, scale, tile, grid):
+    """csrc/fb_fused.cu's schedule in float32: ``grid`` blocks walk the tiles
+    (block b takes tiles b, b + grid, ...; the blocks in any order within a
+    round); M of the start flow into M_a; each round every tile is blurred
+    from M_a, solved, and M of its new flow goes to M_b at the tile's pixels
+    (updateMatrices there reads that pixel's flow only: the other pixels'
+    are NaN), or, in the last round, the flow; then M_a and M_b swap.  It
+    checks that a round never writes the buffer it reads and that each pixel
+    of M_b and of the flow is written once a round."""
+    th, tw = tile
+    _, h, w = r0.shape
+    tiles_x = -(-w // tw)
+    tiles = tiles_x * -(-h // th)
+    if n_iters == 0:
+        return fx0.copy(), fy0.copy()
+
+    def um(u, v):
+        return tent_sample.update_matrices_plain(
+            *(torch.from_numpy(a) for a in (u, v, r0, r1))).numpy()
+
+    m_a = um(fx0, fy0)
+    flow = np.full((2, h, w), np.nan, np.float32)
+    for it in range(n_iters):
+        last = it + 1 == n_iters
+        m_b = np.full_like(m_a, np.nan)
+        read = m_a.copy()
+        writes = np.zeros((h, w), np.int64)
+        for b in reversed(range(grid)):
+            for t in range(b, tiles, grid):
+                y0, x0 = t // tiles_x * th, t % tiles_x * tw
+                ys, xs = slice(y0, min(y0 + th, h)), slice(x0, min(x0 + tw, w))
+                g = _tile_blur(m_a, taps, mode, scale, y0, x0, tile,
+                               blur5_flow.OUTPUTS_PER_THREAD)
+                u, v = (a.numpy() for a in blur5_flow.update_flow(
+                    torch.from_numpy(g[:, :ys.stop - y0, :xs.stop - x0])))
+                writes[ys, xs] += 1
+                if last:
+                    flow[0, ys, xs], flow[1, ys, xs] = u, v
+                else:
+                    new = np.full((2, h, w), np.nan, np.float32)
+                    new[0, ys, xs], new[1, ys, xs] = u, v
+                    m_b[:, ys, xs] = um(new[0], new[1])[:, ys, xs]
+        np.testing.assert_array_equal(m_a, read)
+        assert bool((writes == 1).all())
+        if not last:
+            m_a = m_b
+    return flow[0], flow[1]
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (37, 70), (47, 61)])
+@pytest.mark.parametrize("n_iters", [0, 1, 3])
+@pytest.mark.parametrize("window", ["gaussian", "box"])
+@pytest.mark.parametrize("n", [1, 3, 33])
+def test_fb_persistent_schedule_equals_plain(shape, n_iters, window, n):
+    """The kernel's tile with 3 blocks (fewer blocks than tiles at 37x70,
+    more at 5x7 and 47x61) and an 8x16 tile with 3 blocks for many tiles,
+    bit for bit against ``fb_fused_plain``."""
+    from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_expansion
+    from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
+
+    big = (max(shape[0], 16), max(shape[1], 16))
+    im1, im2, _, _ = particle_image_pair(shape=big, seed=5)
+    r0, r1 = (poly_expansion(torch.from_numpy(im[:shape[0], :shape[1]].copy()), 7, 1.5)
+              .contiguous().numpy() for im in (im1, im2))
+    rng = np.random.default_rng(6)
+    fx0, fy0 = (rng.uniform(-1, 1, shape).astype(np.float32) for _ in range(2))
+    taps, mode, scale = _window_blur_spec(n, window == "gaussian")
+    want = fb_fused.fb_fused_plain(*(torch.from_numpy(a) for a in (r0, r1, fx0, fy0)), n_iters,
+                                   taps, mode, scale)
+    for tile in [(fb_fused.TILE_ROWS, fb_fused.TILE_COLS), (8, 16)]:
+        got = _fb_persistent(r0, r1, fx0, fy0, n_iters, taps, mode, scale, tile, 3)
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g, w_.numpy())
 
 
 # ---------------------------------------------------------------- LK GN: the per-pixel exit
