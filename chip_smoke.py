@@ -58,9 +58,28 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                device time on the path: the build then the GN in one graph,
                less the build alone;
                for the pair warp also one ``F.grid_sample`` call, its
-               library yardstick, by event and by graph replay.
+               library yardstick, by event and by graph replay;
+  6. graph   — the 19 configurations at 512^2 through
+               ``compile.compiled_pipeline`` (one CUDA graph a shape), bit for
+               bit against the eager flows of phase 4, the kernels counted
+               during the capture equal to the eager path's, a second pair
+               replayed in turns with the first, no launch counted at a
+               replay; eager and graph in turns (event ms, host enqueue us),
+               the graph's device time per pair and its capture time; one
+               configuration per solver at 2048^2 as well;
+  7. scan    — ``compile.scan_pipeline`` on 4 distinct pairs bit for bit
+               against eager, and its pairs/s at K = 16 beside an eager loop;
+  8. campaign — 30 pairs written as uncompressed 8-bit TIFFs plus one
+               missing pair through ``harness.batch_runner.FlowBatchRunner``
+               (batch 8, a ragged tail): a run, a resume, the batch with the
+               missing pair in ``failed`` and the rest in ``done``, every
+               ``.mat`` bit for bit against eager ``run_config`` on the
+               decoded TIFFs; then the runner's pairs/s, compute wait and
+               transfer + save time on a fresh campaign.
 
-Any failure raises, so the exit code is non-zero and no result line is
+A configuration whose graph replay is not bit for bit the eager result is
+named with its difference and must stay within the whole-pipeline bar (AEE
+<= 5e-6).  Any failure raises, so the exit code is non-zero and no result line is
 printed.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel with its launches, error, times at 512^2, bound
 (``kernel_costs``, ``bound_ms``) and library time (null where no single
@@ -229,6 +248,23 @@ def gn_exit(lk_iter, t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0, n_iter, R
         small = ((dx.abs() < lk_iter.STEP_EPS) & (dy.abs() < lk_iter.STEP_EPS)).to(torch.float32)
         active[live] = a * (1.0 - small)
     return px, py, status, steps
+
+
+def write_tiff(path: str, im: np.ndarray) -> None:
+    """An (H, W) uint8 image as an uncompressed little-endian grayscale TIFF,
+    one strip: what PIV cameras write and the native decoder reads."""
+    h, w = im.shape
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1),
+            (273, 4, 8 + 2 + 12 * 9 + 4), (277, 3, 1), (278, 4, h), (279, 4, h * w)]
+    ifd = np.zeros(len(tags), dtype=[("tag", "<u2"), ("type", "<u2"), ("count", "<u4"),
+                                     ("value", "<u4")])
+    for i, (tag, typ, value) in enumerate(tags):
+        ifd[i] = (tag, typ, 1, value)
+    with open(path, "wb") as f:
+        f.write(b"II" + np.array([42], "<u2").tobytes() + np.array([8], "<u4").tobytes())
+        f.write(np.array([len(tags)], "<u2").tobytes() + ifd.tobytes())
+        f.write(np.array([0], "<u4").tobytes())  # no next IFD
+        f.write(np.ascontiguousarray(im, np.uint8).tobytes())
 
 
 def aee(u, v, u_ref, v_ref) -> float:
@@ -973,6 +1009,206 @@ def main() -> None:
         torch.cuda.empty_cache()
     for name, w in wrappers.items():
         w.launches = saved_counts[name]
+
+    # ---------------------------------------------------------------- 6
+    phase("graph")
+    from opticalflow_ri_tpu_torch.compile import compiled_pipeline, scan_pipeline
+    from opticalflow_ri_tpu_torch.configs import CONFIGS
+
+    def same_or_within(label, got, want):
+        """Bit for bit, or named with its difference within the AEE bar."""
+        if all(torch.equal(g, w) for g, w in zip(got, want)):
+            return 0.0
+        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        e = aee(to_np(got[0]), to_np(got[1]), to_np(want[0]), to_np(want[1]))
+        print(f"NOT BITWISE {label}: max|d|={d!r} AEE {e!r} (bar {AEE_BAR})")
+        if not e <= AEE_BAR:
+            raise AssertionError(f"{label}: graph replay and eager disagree")
+        return d
+
+    def turns(fns: dict, reps: int) -> dict:
+        """Per label: median event ms and median host enqueue us of one call,
+        the labels in turns, the order alternating each turn."""
+        ev, host = {k: [] for k in fns}, {k: [] for k in fns}
+        labels = list(fns)
+        for i in range(reps):
+            for label in (labels if i % 2 == 0 else labels[::-1]):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                fns[label]()
+                t1 = time.perf_counter()
+                end.record()
+                end.synchronize()
+                ev[label].append(start.elapsed_time(end))
+                host[label].append(1e6 * (t1 - t0))
+        return {k: (statistics.median(ev[k]), statistics.median(host[k])) for k in fns}
+
+    def replay_device_ms(fn, a, b, replays=20) -> float:
+        """The graph replayed back to back (its input copies included): the
+        device's time per pair."""
+        fn.replay(a, b)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            fn.replay(a, b)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / replays
+
+    h1, h2, _, _ = particle_image_pair(shape=(512, 512), seed=1)
+    h1, h2 = torch.as_tensor(h1, device=dev), torch.as_tensor(h2, device=dev)
+    graph_times, not_bitwise = {}, {}
+    for name in CONFIGS:
+        fn = compiled_pipeline(name)
+        eager2 = run_config(name, h1, h2)
+        fn.warm_up(g1, g2)
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.perf_counter()
+        got = fn(g1, g2)  # the capture, then the first replay
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        captured = {k: w.launches - before[k] for k, w in wrappers.items()}
+        if {k for k, c in captured.items() if c} != expected(name):
+            raise AssertionError(f"{name}: the capture launched {captured}, expected "
+                                 f"{sorted(expected(name))}")
+        d = same_or_within(f"{name} 512^2 pair 0", got, flows[name])
+        for _ in range(2):  # two pairs in turns: each replay computes its own pair
+            d = max(d, same_or_within(f"{name} 512^2 pair 1", fn(h1, h2), eager2),
+                    same_or_within(f"{name} 512^2 pair 0", fn(g1, g2), flows[name]))
+        if any(w.launches != before[k] + captured[k] for k, w in wrappers.items()):
+            raise AssertionError(f"{name}: a replay counted launches")
+        if d:
+            not_bitwise[name] = d
+        t = turns({"eager": lambda n=name: run_config(n, g1, g2),
+                   "graph": lambda f=fn: f(g1, g2)}, REPS)
+        graph_times[name] = rec = {
+            "graph": name, "shape": [512, 512], "bitwise": not d, "max_abs_diff": d,
+            "captured_launches": {k: c for k, c in captured.items() if c},
+            "capture_s": capture_s, "eager_ms": t["eager"][0], "graph_ms": t["graph"][0],
+            "eager_host_us": t["eager"][1], "graph_host_us": t["graph"][1],
+            "graph_device_ms": replay_device_ms(fn, g1, g2)}
+        print(json.dumps({**rec, "gpu": gpu}), flush=True)
+        fn.release()
+        del got, eager2
+
+    # one config per solver at 2048^2
+    b1, b2, _, _ = particle_image_pair(shape=(2048, 2048), seed=0)
+    b1, b2 = torch.as_tensor(b1, device=dev), torch.as_tensor(b2, device=dev)
+    for name in ("HS_Fs3_4", "LiuSE_HS_Fs3_4_PyrLvls2", "LK_Fs2_0", "Farneback_Fs0_0"):
+        fn = compiled_pipeline(name)
+        want = run_config(name, b1, b2)
+        t0 = time.perf_counter()
+        got = fn(b1, b2)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        d = same_or_within(f"{name} 2048^2", got, want)
+        if d:
+            not_bitwise[f"{name} 2048^2"] = d
+        t = turns({"eager": lambda n=name: run_config(n, b1, b2),
+                   "graph": lambda f=fn: f(b1, b2)}, 5)
+        print(json.dumps({"graph": name, "shape": [2048, 2048], "bitwise": not d,
+                          "max_abs_diff": d, "capture_s": capture_s, "eager_ms": t["eager"][0],
+                          "graph_ms": t["graph"][0], "eager_host_us": t["eager"][1],
+                          "graph_host_us": t["graph"][1],
+                          "graph_device_ms": replay_device_ms(fn, b1, b2, 5), "gpu": gpu}),
+              flush=True)
+        fn.release()
+        del got, want
+    del b1, b2
+    torch.cuda.empty_cache()
+    print(f"graph replay against eager: {len(CONFIGS)} configs at 512^2 and 4 at 2048^2, "
+          f"not bit for bit: {not_bitwise or 'none'}")
+
+    # ---------------------------------------------------------------- 7
+    phase("scan")
+    stacks = [particle_image_pair(shape=(512, 512), seed=s)[:2] for s in range(16)]
+    s1 = torch.as_tensor(np.stack([p[0] for p in stacks]), device=dev)
+    s2 = torch.as_tensor(np.stack([p[1] for p in stacks]), device=dev)
+    for name in ("HS_Fs3_4", "LK_Fs2_0", "Farneback_Fs0_0", "LiuSE_Farneback_Fs0_0_PyrLvls2"):
+        scan = scan_pipeline(name)
+        us, vs = scan(s1[:4], s2[:4])
+        for k in range(4):
+            d = same_or_within(f"scan {name} pair {k} of 4", (us[k], vs[k]),
+                               run_config(name, s1[k], s2[k]))
+            if d:
+                not_bitwise[f"scan {name}"] = d
+
+        def eager_loop(n=name):
+            for k in range(16):
+                run_config(n, s1[k], s2[k])
+
+        t = turns({"eager": eager_loop, "scan": lambda f=scan: f(s1, s2)}, 5)
+        print(json.dumps({"scan": name, "shape": [16, 512, 512],
+                          "scan_ms": t["scan"][0], "scan_pairs_per_s": 16e3 / t["scan"][0],
+                          "eager_loop_ms": t["eager"][0],
+                          "eager_pairs_per_s": 16e3 / t["eager"][0],
+                          "scan_host_us": t["scan"][1], "gpu": gpu}), flush=True)
+        scan.release()
+    del s1, s2, us, vs
+
+    # ---------------------------------------------------------------- 8
+    phase("campaign")
+    import shutil
+    import tempfile
+
+    import scipy.io
+
+    from opticalflow_ri_tpu_torch.harness.batch_runner import FlowBatchRunner
+    from opticalflow_ri_tpu_torch.utils.io import load_image
+
+    camp = "HS_Fs3_4"
+    work = tempfile.mkdtemp(prefix="ofri_campaign_")
+    try:
+        pairs = []
+        for i in range(30):
+            a, b, _, _ = particle_image_pair(shape=(512, 512), seed=100 + i)
+            paths = [os.path.join(work, f"p{i:02d}_{j}.tif") for j in (0, 1)]
+            for p, im in zip(paths, (a, b)):
+                write_tiff(p, np.clip(np.rint(im), 0, 255).astype(np.uint8))
+            pairs.append((f"p{i:02d}", *paths))
+        missing = ("missing", os.path.join(work, "nope_0.tif"), os.path.join(work, "nope_1.tif"))
+        pairs.insert(20, missing)
+        out = os.path.join(work, "out")
+        first = FlowBatchRunner(camp, batch_size=8, output_dir=out).run(pairs[:16])
+        state = FlowBatchRunner(camp, batch_size=8, output_dir=out).run(pairs)  # resume
+        lost = [p[0] for p in pairs[16:24]]  # the batch that holds the missing pair
+        want_done = sorted(p[0] for p in pairs if p[0] not in lost)
+        print(f"campaign {camp}: first run done {len(first['done'])}, after the resume done "
+              f"{len(state['done'])} failed {sorted(state['failed'])}")
+        if sorted(first["done"]) != sorted(p[0] for p in pairs[:16]):
+            raise AssertionError(f"campaign: the first run did {first['done']}")
+        if sorted(state["done"]) != want_done or sorted(state["failed"]) != sorted(lost):
+            raise AssertionError(f"campaign: done {state['done']}, failed {state['failed']}")
+        for name, p0, p1 in pairs:
+            if name not in want_done:
+                continue
+            vel = scipy.io.loadmat(os.path.join(out, f"{name}.mat"))["velocities"]
+            got = (torch.as_tensor(vel["u"][0, 0]), torch.as_tensor(vel["v"][0, 0]))
+            want = run_config(camp, load_image(p0), load_image(p1))
+            d = same_or_within(f"campaign {name}", got, [x.cpu() for x in want])
+            if d:
+                not_bitwise[f"campaign {camp}"] = d
+        print(f"campaign: {len(want_done)} .mat files against eager run_config on the decoded "
+              f"TIFFs: checked")
+        valid = [p for p in pairs if p is not missing]
+        steady = FlowBatchRunner(camp, batch_size=8, output_dir=os.path.join(work, "steady"))
+        t0 = time.perf_counter()
+        st = steady.run(valid)
+        wall = time.perf_counter() - t0
+        print(json.dumps({"campaign": camp, "pairs": len(st["done"]), "batch_size": 8,
+                          "shape": [512, 512], "pairs_per_s": len(st["done"]) / wall,
+                          "seconds_per_batch": st["seconds_per_batch"],
+                          "compute_wait_s": st["compute_wait_s"],
+                          "transfer_save_s": st["transfer_save_s"], "gpu": gpu}), flush=True)
+        compiled_pipeline(camp).release()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"graph, scan and campaign against eager, not bit for bit: {not_bitwise or 'none'}")
 
     # ---------------------------------------------------------------- result
     # name: (source, the TPU kernel it replaces, the others it also replaces)

@@ -32,6 +32,8 @@ the multi-GPU slice (ROADMAP.md Queue 1, item 8).
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -40,6 +42,7 @@ from opticalflow_ri_tpu_torch.ops.cuda.lk_build import lk_build_planes_plain
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3
 from opticalflow_ri_tpu_torch.ops.window_sums import runs_from_mask, wsum2d
+from opticalflow_ri_tpu_torch.utils.device import capturing, device_constant
 
 _GRID = 32
 _D_EPS = 1.192092896e-07
@@ -135,7 +138,17 @@ def lk_solve_fields(ipad, jpad, hw: int, R: int, runs_y, runs_x, h: int, w: int)
     return (g_pair, slab, *(f.contiguous() for f in fields), ok)
 
 
-def _lk_error_map(ipad, jpad, px, py, ok, hw, win, wgt, pad, h, w):
+@lru_cache(maxsize=None)
+def _error_weights(half_window: int, asym: tuple) -> np.ndarray:
+    """The GetError weights over the 32x32 grid: the symmetric window's mask
+    times the solve's (possibly asymmetric) window."""
+    win = 2 * half_window + 1
+    wx, wy, _, _ = _window_runs(half_window, asym)
+    sym = window_mask(win, 0, 0)
+    return (sym[:, None] * sym[None, :]) * (wy[:, None] * wx[None, :])
+
+
+def _lk_error_map(ipad, jpad, px, py, ok, hw, asym, pad, h, w):
     """Weighted SAD error map of the final warped window, the CL kernel's
     GetError pass (``models/lucas_kanade.py:210-258``): bilinear-sample J at
     the post-iteration window positions over the 32x32 grid, quantise both
@@ -143,9 +156,8 @@ def _lk_error_map(ipad, jpad, px, py, ok, hw, win, wgt, pad, h, w):
     32*win*win; singular windows keep err=0.  Plain PyTorch gathers in blocks
     of 16 rows."""
     dev = ipad.device
-    emask = torch.from_numpy(
-        (window_mask(win, 0, 0)[:, None] * window_mask(win, 0, 0)[None, :]) * wgt
-    ).to(dev)
+    win = 2 * hw + 1
+    emask = device_constant(_error_weights, hw, tuple(int(a) for a in asym), device=dev)
     hp, wp = jpad.shape
     rr = torch.arange(_GRID + 1, device=dev)
 
@@ -256,20 +268,25 @@ def lk_dense_solve(im1, im2, u0, v0, half_window: int = 13, n_iter: int = 5,
     status = torch.where(ok, status, torch.zeros_like(status))
     if not calc_err:
         return u, v, status
-    wx, wy, _, _ = _window_runs(hw, asym)
     pad = hw + (_GRID - hw) + R + 1
     err = _lk_error_map(pad2d(im1.to(torch.float32), pad, "nearest"),
-                        pad2d(im2.to(torch.float32), pad, "nearest"), px, py, ok, hw,
-                        2 * hw + 1, wy[:, None] * wx[None, :], pad, *ok.shape)
+                        pad2d(im2.to(torch.float32), pad, "nearest"), px, py, ok, hw, asym,
+                        pad, *ok.shape)
     return u, v, status, err
 
 
 def evaluate_vorticity_asym(u, v, enable: bool):
     """Vorticity-based asymmetric-window selection
     (ref: src/denseLucasKanade_PyCL.py:75-92); a host-side decision, like
-    the reference's pre-launch configuration."""
+    the reference's pre-launch configuration.  It reads the mean vorticity
+    on the host, which waits for the device: enabled, it raises inside a
+    CUDA graph capture (no registered configuration enables it)."""
     if not enable:
         return (0, 0, 0, 0)
+    if capturing():
+        raise RuntimeError(
+            "enableVorticityEnhancement reads the flow on the host, which a CUDA graph capture "
+            "forbids: run this adapter eagerly (pipeline_fn or run_config)")
     d = np.array([[0, -1, 0], [0, 0, 0], [0, 1, 0]], np.float32) * 0.5
     # scipy 'reflect' == the 'symmetric' border
     dv = correlate3x3(v.to(torch.float32), d.T[::-1, ::-1].copy(), "symmetric")

@@ -25,7 +25,7 @@ import torch
 from opticalflow_ri_tpu_torch.ops.cuda import build
 from opticalflow_ri_tpu_torch.ops.cuda.lk_iter import clip_hi
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
-from opticalflow_ri_tpu_torch.utils.device import host_to
+from opticalflow_ri_tpu_torch.utils.device import device_constant
 
 BORDER_RAMP = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472, 1.0], np.float32)
 
@@ -61,8 +61,8 @@ def assemble_m(s, r0, flowx, flowy, inside, row0: int = 0, img_rows: int | None 
     r2 = r2 + r4 * flowy + r6 * flowx
     r3 = r3 + r6 * flowy + r5 * flowx
 
-    rx, ry, rcx, rcy = (host_to(v, flowx.device)
-                        for v in _ramp_vectors(rows, cols, int(row0), int(img_rows)))
+    rx, ry, rcx, rcy = device_constant(_ramp_vectors, rows, cols, int(row0), int(img_rows),
+                                       device=flowx.device)
     scale = rx * ry * rcx * rcy
     r2 = r2 * scale
     r3 = r3 * scale
@@ -125,6 +125,15 @@ def update_matrices_plain(flowx, flowy, r0, r1, sample_max_shift: int | None = 5
     return assemble_m(s, r0, flowx, flowy, inside)
 
 
+@lru_cache(maxsize=None)
+def _entry():
+    entry = build.load_library().ofri_fb_update_matrices
+    entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    return entry
+
+
 def update_matrices(flowx, flowy, r0, r1, sample_max_shift: int | None = 5):
     """Assemble M; returns (5, H, W) float32.
 
@@ -140,10 +149,7 @@ def update_matrices(flowx, flowy, r0, r1, sample_max_shift: int | None = 5):
         build.check_tensor("update_matrices", t, (5, h, w), dev)
     R, hi = shift_args(sample_max_shift)
     m = torch.empty((5, h, w), dtype=torch.float32, device=dev)
-    entry = build.load_library().ofri_fb_update_matrices
-    entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    entry = _entry()
     stream = torch.cuda.current_stream(dev).cuda_stream
     update_matrices.launches += 1
     rc = entry(r0.data_ptr(), r1.data_ptr(), flowx.data_ptr(), flowy.data_ptr(), m.data_ptr(),

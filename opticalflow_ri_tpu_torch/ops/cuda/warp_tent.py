@@ -12,6 +12,7 @@ two taps per axis are added in the contraction's sy-major order.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -22,6 +23,14 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
     + [ctypes.c_int, ctypes.c_void_p]
 )
+
+
+@lru_cache(maxsize=None)
+def _entry():
+    entry = build.load_library().ofri_warp_pair
+    entry.argtypes = _ARGTYPES
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def _clip_bounds(max_shift: int) -> tuple[float, float]:
@@ -78,9 +87,7 @@ def warp_pair(im1, im2, dy1, dx1, dy2, dx2, max_shift: int = 8):
     out1 = torch.empty((h, w), dtype=torch.float32, device=im1.device)
     out2 = torch.empty((h, w), dtype=torch.float32, device=im1.device)
     lo, hi = _clip_bounds(max_shift)
-    entry = build.load_library().ofri_warp_pair
-    entry.argtypes = _ARGTYPES
-    entry.restype = ctypes.c_int
+    entry = _entry()
     stream = torch.cuda.current_stream(im1.device).cuda_stream
     warp_pair.launches += 1
     rc = entry(im1.data_ptr(), im2.data_ptr(), dy1.data_ptr(), dx1.data_ptr(), dy2.data_ptr(),

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from opticalflow_ri_tpu_torch.utils.device import host_to
+from opticalflow_ri_tpu_torch.utils.device import device_constant
 
 _MODES = ("mirror", "symmetric", "nearest", "constant")
 
@@ -56,6 +56,6 @@ def pad2d(x: torch.Tensor, pad: int | tuple, mode: str) -> torch.Tensor:
     if mode == "constant":
         return F.pad(x, (left, right, top, bottom), mode="constant", value=0.0)
     h, w = x.shape[-2], x.shape[-1]
-    rows = host_to(_pad_index(h, top, bottom, mode), x.device)
-    cols = host_to(_pad_index(w, left, right, mode), x.device)
+    rows = device_constant(_pad_index, h, top, bottom, mode, device=x.device)
+    cols = device_constant(_pad_index, w, left, right, mode, device=x.device)
     return x.index_select(-2, rows).index_select(-1, cols)

@@ -15,7 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from opticalflow_ri_tpu_torch.utils.device import host_to
+from opticalflow_ri_tpu_torch.utils.device import device_constant
 
 
 def _bilinear_filter(x: float) -> float:
@@ -76,8 +76,8 @@ def pil_resize(img: torch.Tensor, out_hw: tuple, method: str) -> torch.Tensor:
     in_h, in_w = img.shape[-2], img.shape[-1]
     if (in_h, in_w) == (out_h, out_w):
         return img
-    rv = host_to(pil_resize_matrix(in_h, out_h, method), img.device)
-    rh = host_to(pil_resize_matrix(in_w, out_w, method), img.device)
+    rv = device_constant(pil_resize_matrix, in_h, out_h, method, device=img.device)
+    rh = device_constant(pil_resize_matrix, in_w, out_w, method, device=img.device)
     return torch.matmul(rv, torch.matmul(img, rh.T))
 
 
@@ -100,6 +100,6 @@ def spline_upsample(field: torch.Tensor, out_hw: tuple) -> torch.Tensor:
     in_h, in_w = field.shape[-2], field.shape[-1]
     if (in_h, in_w) == (out_h, out_w):
         return field
-    rv = host_to(spline_resize_matrix(in_h, out_h), field.device)
-    rh = host_to(spline_resize_matrix(in_w, out_w), field.device)
+    rv = device_constant(spline_resize_matrix, in_h, out_h, device=field.device)
+    rh = device_constant(spline_resize_matrix, in_w, out_w, device=field.device)
     return torch.matmul(torch.matmul(rv, field), rh.T)

@@ -14,7 +14,10 @@ Adapters follow the reference protocol: ``compute(im1, im2, U, V) ->
 ``getGenericPyramidalDefaults()``.
 
 Tensor inputs stay on their device; numpy inputs go to ``device`` (default
-"cuda").  Nothing moves to the CPU behind the caller's back.
+"cuda").  Nothing moves to the CPU behind the caller's back, and nothing on
+the path waits for the device, so a run can be captured in a CUDA graph
+(``compile.compiled_pipeline``): the adapters' errors stay device tensors and
+are logged only outside a capture.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter_px
 from opticalflow_ri_tpu_torch.ops.resize import pil_resize, spline_upsample
 from opticalflow_ri_tpu_torch.ops.warp import symmetric_warp_pair, liu_shen_warp
+from opticalflow_ri_tpu_torch.utils.device import capturing
 
 log = logging.getLogger("opticalflow_ri_tpu_torch")
 
@@ -37,6 +41,14 @@ def _as_image(x, device="cuda") -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
     return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+
+def _log_error(adapter, error) -> None:
+    """Log an adapter's error at INFO.  The error is a device tensor, and
+    formatting it waits for the device, which a CUDA graph capture forbids:
+    while the stream is capturing nothing is logged."""
+    if log.isEnabledFor(logging.INFO) and not capturing():
+        log.info("%s estimated error for image registration: %s", adapter.getAlgoName(), error)
 
 
 def _imresize_bicubic(im, scale):
@@ -166,16 +178,12 @@ def generic_pyramidal_optical_flow(
                         warping, biLinear, False,
                     )
 
-            # the error stays a device tensor; only INFO logging formats
-            # it, which waits for the device
             u, v, error = mainOFlowAlgoAdapter.compute(im1_work, im2_work, u, v)
-            log.info("%s estimated error for image registration: %s",
-                     mainOFlowAlgoAdapter.getAlgoName(), error)
+            _log_error(mainOFlowAlgoAdapter, error)
 
             if optionalOFlowAlgoAdapter is not None:
                 u, v, error_opt = optionalOFlowAlgoAdapter.compute(im1_opt, im2_opt, u, v)
-                log.info("%s estimated error for image registration: %s",
-                         optionalOFlowAlgoAdapter.getAlgoName(), error_opt)
+                _log_error(optionalOFlowAlgoAdapter, error_opt)
 
             u_accum = u_accum + _as_image(u, im1.device)
             v_accum = v_accum + _as_image(v, im1.device)

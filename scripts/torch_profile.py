@@ -2,9 +2,11 @@
 """Device time and idle share of the PyTorch/CUDA port on one GPU.
 
     python3 scripts/torch_profile.py [--out chiprun_out/torch_profile.json]
+        [--configs NAME ...] [--graph] [--skip-kernels]
 
 For each named configuration on the 512^2 synthetic pair
-(``particle_image_pair(shape=(512, 512), seed=0)``), for each dense-LK
+(``particle_image_pair(shape=(512, 512), seed=0)``; with ``--graph`` also as
+a replay of its CUDA graph, ``compile.compiled_pipeline``), for each dense-LK
 kernel at 512^2 and 2048^2 (half window 13, R = 5, 5 GN steps) and for each
 Farneback kernel there (R = 5, window 33 Gaussian, 5 iterations for the fused
 loop), kernel and plain version, it reports:
@@ -15,7 +17,8 @@ loop), kernel and plain version, it reports:
                 ``torch.profiler`` over ``--reps`` calls, per call;
   * idle      — 1 - device_ms / wall_ms, the share of the call the card waits
                 for the host;
-  * top       — the five largest device-time entries by name.
+  * top       — the five largest device-time entries by name;
+  * host_top  — the five largest host entries by self CPU time per call.
 
 It prints one JSON line per row and writes all rows to ``--out``.  Needs a
 CUDA device; imports no JAX.
@@ -36,6 +39,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from opticalflow_ri_tpu_torch.compile import compiled_pipeline  # noqa: E402
 from opticalflow_ri_tpu_torch.configs import run_config  # noqa: E402
 from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_expansion  # noqa: E402
 from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs  # noqa: E402
@@ -61,7 +65,8 @@ def wall_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int):
-    """Per-call device time and the five largest entries, from the profiler."""
+    """Per-call device time, the five largest device entries and the five
+    largest host entries (self CPU time per call), from the profiler."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -75,14 +80,18 @@ def device_ms(fn, reps: int):
             for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), [{"name": k[:80], "ms": t, "calls": c} for k, t, c in rows[:5]]
+    host = sorted(((e.key, e.self_cpu_time_total / reps, e.count / reps)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU), key=lambda r: -r[1])
+    return (sum(r[1] for r in rows), [{"name": k[:80], "ms": t, "calls": c} for k, t, c in rows[:5]],
+            [{"name": k[:80], "us": t, "calls": c} for k, t, c in host[:5]])
 
 
 def measure(label: str, fn, reps: int, gpu: str, **extra) -> dict:
     wall = wall_ms(fn, reps)
-    dev, top = device_ms(fn, reps)
+    dev, top, host_top = device_ms(fn, reps)
     row = {"what": label, **extra, "wall_ms": wall, "device_ms": dev,
-           "idle": 1.0 - dev / wall, "top": top, "gpu": gpu}
+           "idle": 1.0 - dev / wall, "top": top, "host_top": host_top, "gpu": gpu}
     print(json.dumps(row), flush=True)
     return row
 
@@ -92,6 +101,10 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "torch_profile.json"))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--configs", nargs="*", default=list(CONFIGS))
+    ap.add_argument("--graph", action="store_true",
+                    help="also profile each configuration as a CUDA graph replay")
+    ap.add_argument("--skip-kernels", action="store_true",
+                    help="profile the configurations only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -105,7 +118,22 @@ def main() -> None:
     for name in args.configs:
         rows.append(measure(name, lambda n=name: run_config(n, g1, g2), args.reps, gpu,
                             shape=[512, 512]))
+        if args.graph:
+            fn = compiled_pipeline(name)
+            rows.append(measure(name, lambda f=fn: f(g1, g2), args.reps, gpu,
+                                shape=[512, 512], path="graph replay"))
+            fn.release()
+    if not args.skip_kernels:
+        rows += kernel_rows(dev, args.reps, gpu)
 
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(rows, f, indent=1)
+
+
+def kernel_rows(dev, reps_512: int, gpu: str) -> list:
+    """The LK and FB kernels and their plain versions at 512^2 and 2048^2."""
+    rows = []
     rng = np.random.default_rng(0)
     for shape in [(512, 512), (2048, 2048)]:
         a = rng.uniform(0, 255, shape).astype(np.float32)
@@ -114,7 +142,7 @@ def main() -> None:
                   for _ in range(2))
         slab, g_pair, fields, ry, rx = lk_kernel_inputs(
             torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev), u0, v0)
-        reps = args.reps if shape == (512, 512) else 3
+        reps = reps_512 if shape == (512, 512) else 3
         t1, t2 = lk_build.lk_build_planes(slab, g_pair, 13, 5, ry, rx)
         calls = {
             "lk_build": lambda: lk_build.lk_build_planes(slab, g_pair, 13, 5, ry, rx),
@@ -148,10 +176,7 @@ def main() -> None:
             rows.append(measure(label, fn, reps, gpu, shape=list(shape)))
         del r0, r1, m
         torch.cuda.empty_cache()
-
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(rows, f, indent=1)
+    return rows
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ from opticalflow_ri_tpu.models import farneback as jfb
 from opticalflow_ri_tpu.oracle import lucas_kanade as jlk_oracle
 from opticalflow_ri_tpu.ops import gaussian as jgauss
 from opticalflow_ri_tpu.ops import kernels_bitexact as jkb
+from opticalflow_ri_tpu.ops import kernels_simple as jks
 from opticalflow_ri_tpu.ops import resize as jresize
 from opticalflow_ri_tpu.ops import window_sums as jws
 from opticalflow_ri_tpu.utils import synthetic as jsynth
@@ -22,6 +23,7 @@ from opticalflow_ri_tpu_torch.models import farneback as tfb
 from opticalflow_ri_tpu_torch.models import lucas_kanade as tlk
 from opticalflow_ri_tpu_torch.ops import gaussian as tgauss
 from opticalflow_ri_tpu_torch.ops import kernels_bitexact as tkb
+from opticalflow_ri_tpu_torch.ops import kernels_simple as tks
 from opticalflow_ri_tpu_torch.ops import resize as tresize
 from opticalflow_ri_tpu_torch.ops import window_sums as tws
 from opticalflow_ri_tpu_torch.utils import synthetic as tsynth
@@ -114,6 +116,18 @@ def test_bitexact_positive_sigma_is_ignored_copy(n):
         _same_kernel(got, jkb.get_gaussian_kernel_bit_exact(n, sigma))
         if sigma > 0:
             _same_kernel(got, first)
+
+
+@pytest.mark.parametrize("name,n,sigma", [
+    ("simple_gaussian_kernel", n, sigma) for n, sigma in [(1, 0.5), (7, 1.5), (8, 2.0),
+                                                          (9, -2.0), (33, 4.95)]] + [
+    ("simple_gaussian_kernel_decimal", n, sigma) for n, sigma in [(3, -1.0), (5, 0.0),
+                                                                  (9, -1.0), (7, 1.5),
+                                                                  (8, 2.0)]])
+def test_simple_gaussian_kernels_copy(name, n, sigma):
+    got, want = getattr(tks, name)(n, sigma), getattr(jks, name)(n, sigma)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
 
 
 def test_border_ramp_copy():
