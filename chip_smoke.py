@@ -75,7 +75,29 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                missing pair in ``failed`` and the rest in ``done``, every
                ``.mat`` bit for bit against eager ``run_config`` on the
                decoded TIFFs; then the runner's pairs/s, compute wait and
-               transfer + save time on a fresh campaign.
+               transfer + save time on a fresh campaign;
+  9. parallel — the multi-GPU layer (``opticalflow_ri_tpu_torch.parallel``):
+               K1 and K4/K5 with all 16 per-side ``edges`` masks against their
+               plain versions at 47x61 and 333x517, bit for bit; then two
+               groups of ranks spawned as ``chip_smoke.py --parallel-rank``
+               (the kernels built once, here, before): one NCCL rank, and
+               four gloo ranks sharing the one GPU (halos staged through
+               host memory).  Each runs, at 2048^2 on
+               ``particle_image_pair(seed=0)``, the kernel-sharded HS solve
+               ((1, 2, 2) mesh), the rows-sharded Liu-Shen solve ((1, 4, 1),
+               60 steps), ``batched_hs_pipeline`` ((2, 1, 2), two pairs) and
+               ``auto_sharded_pipeline("HS_Fs3_4")`` ((1, 2, 2)); rank 0
+               gathers the tiles and holds them against the single-device
+               port bit for bit (err to 1e-6 relative).  The four ranks also
+               run ``batch_sharded_scan`` ((4, 1, 1), 16 pairs at 512^2,
+               bit for bit against ``scan_pipeline``) and the runner with
+               the mesh on the campaign's pairs (its ``done``/``failed`` and
+               every ``.mat`` equal to the single-device runner's).  Rank 0
+               times one sharded HS_Fs3_4 and one Liu-Shen solve beside the
+               eager single-device calls, with the halo exchanges, kernel
+               launches and host err reads per solve; the four-rank times
+               share one GPU and are no scaling figure.  A failed rank stops
+               the group and fails the phase.
 
 A configuration whose graph replay is not bit for bit the eager result is
 named with its difference and must stay within the whole-pipeline bar (AEE
@@ -273,6 +295,356 @@ def aee(u, v, u_ref, v_ref) -> float:
 
 def to_np(t):
     return t.detach().cpu().numpy()
+
+
+PARALLEL_SHAPE = (2048, 2048)
+PARALLEL_TIMEOUT_S = 420   # one spawned group, start-up included
+
+
+def masked_parity(dev, rand) -> dict:
+    """K1 and K4/K5 with every ``edges`` mask against their plain versions on
+    the card, bit for bit (the whole array, apron edges included): HS at 1,
+    T-1 and T iterations, Liu-Shen at 1 and T steps with the stop (tol 0,
+    k = max_iter) and at 2T + 1 steps with stop=False.  Returns the largest
+    difference per kernel (0 when bit for bit)."""
+    import torch
+
+    from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
+    from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter
+    from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
+
+    t_hs, t_ls = hs_iter.STEPS_PER_LAUNCH, liu_shen_iter.STEPS_PER_LAUNCH
+    worst = {"hs_jacobi": 0.0, "liu_shen": 0.0}
+    for shape in [(47, 61), (333, 517)]:
+        fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
+        u0, v0 = rand(shape, -2, 2), rand(shape, -2, 2)
+        a, b = rand(shape, 1, 255), rand(shape, 1, 255)
+        fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
+        lu, lv = rand(shape, -0.5, 0.5), rand(shape, -0.5, 0.5)
+        bad = []
+        for edges in range(16):
+            for niter in (1, t_hs - 1, t_hs):
+                got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter, edges)
+                want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter, edges)
+                d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                worst["hs_jacobi"] = max(worst["hs_jacobi"], d)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    bad.append(("hs_jacobi", edges, niter, d))
+            for n, stop in ((1, True), (t_ls, True), (2 * t_ls + 1, False)):
+                got = liu_shen_iter.liu_shen_iterate(10.0, fields, lu, lv, n, 0.0, edges, stop)
+                want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, lu, lv, n, 0.0, edges,
+                                                            stop)
+                d = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+                worst["liu_shen"] = max(worst["liu_shen"], d)
+                same = all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))
+                if not (same and int(got[3]) == int(want[3]) == n):
+                    bad.append(("liu_shen", edges, n, stop, d, int(got[3]), int(want[3])))
+                if not stop and not bool(torch.isnan(got[2])):
+                    bad.append(("liu_shen err without the stop", edges, float(got[2])))
+        torch.cuda.synchronize()
+        print(f"masked kernels {shape}: 16 edges masks, HS at 1, {t_hs - 1}, {t_hs} iterations, "
+              f"Liu-Shen at 1 and {t_ls} steps (stop) and {2 * t_ls + 1} (stop=False): "
+              f"max|d| {worst} (bar: bitwise) failures {bad or 'none'}", flush=True)
+        if bad:
+            raise AssertionError(f"masked kernels disagree with their plain versions: {bad}")
+    return worst
+
+
+def rank_main(argv) -> None:
+    """One rank of a group spawned by the parallel phase: ``chip_smoke.py
+    --parallel-rank R WORLD BACKEND INIT WORK``.  Runs the sharded entry
+    points at 2048^2 on this rank's tiles, gathers them to rank 0, which
+    holds them against the single-device port on the same card and prints
+    one JSON line per check; any disagreement raises (non-zero exit)."""
+    import torch
+
+    rank, world, backend, init, work = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    sys.path.insert(0, ROOT)
+    from opticalflow_ri_tpu_torch.compile import scan_pipeline
+    from opticalflow_ri_tpu_torch.configs import run_config
+    from opticalflow_ri_tpu_torch.models.horn_schunck import hs_solve
+    from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
+    from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter
+    from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter_px
+    from opticalflow_ri_tpu_torch.parallel import (
+        batch_sharded_scan, batch_sharding, batched_hs_pipeline, distributed, exchange_halo,
+        hs_solve_sharded, liu_shen_solve_sharded, make_mesh,
+    )
+    from opticalflow_ri_tpu_torch.parallel.auto import auto_sharded_pipeline
+    from opticalflow_ri_tpu_torch.parallel.sharded_kernel import liu_shen_solve_sharded_kernel
+    from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
+
+    distributed.initialize(init, world, rank, backend=backend)
+    assert "jax" not in sys.modules, "the port imported jax"
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lead = rank == 0
+    one = world == 1
+    label = ("one NCCL rank" if one else f"{world} {backend} ranks sharing one GPU "
+             f"({torch.cuda.get_device_name(0)})")
+
+    def report(rec):
+        if lead:
+            print(json.dumps({"group": label, **rec}), flush=True)
+
+    def mesh(shape):
+        return make_mesh(shape=(1, 1, 1) if one else shape)
+
+    def same(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    def rel(e, e_ref):
+        e, e_ref = float(e), float(e_ref)
+        return abs(e - e_ref) / abs(e_ref) if e_ref else abs(e)
+
+    def check(name, ok, rec):
+        report({"check": name, "ok": bool(ok), **rec})
+        if lead and not ok:
+            raise AssertionError(f"{label}: {name} disagrees with the single-device port: {rec}")
+
+    shape = PARALLEL_SHAPE
+    pair = [torch.as_tensor(im, device=dev) for im in particle_image_pair(shape, seed=0)[:2]]
+    pair1 = [torch.as_tensor(im, device=dev) for im in particle_image_pair(shape, seed=1)[:2]]
+    zero = torch.zeros(shape, dtype=torch.float32, device=dev)
+    spec = ("y", "x")
+
+    def counts():
+        return (hs_iter.hs_iterate.launches, liu_shen_iter.liu_shen_iterate.launches,
+                exchange_halo.exchanges, liu_shen_solve_sharded_kernel.err_reads)
+
+    def per_call(before):
+        after = counts()
+        return dict(zip(("hs_iterate_launches", "liu_shen_iterate_launches", "halo_exchanges",
+                         "host_err_reads"), (a - b for a, b in zip(after, before))))
+
+    # Horn-Schunck on the kernel, ("y", "x") tiles
+    m_hs = mesh((1, 2, 2))
+    sl = distributed.local_slices(m_hs, shape, spec)
+    before = counts()
+    u, v, err = hs_solve_sharded(m_hs, pair[0][sl], pair[1][sl], 21.0, 100, zero[sl], zero[sl])
+    used = per_call(before)
+    u, v = (distributed.gather_global(m_hs, t, spec) for t in (u, v))
+    if lead:
+        ref = hs_solve(*pair, 21.0, 100, zero, zero)
+        check("hs_solve_sharded (kernel), alpha 21, 100 iterations", same((u, v), ref[:2])
+              and rel(err, ref[2]) <= 1e-6 and used["hs_iterate_launches"] > 0,
+              {"bitwise": same((u, v), ref[:2]), "err": float(err), "single_err": float(ref[2]),
+               "err_rel": rel(err, ref[2]), "mesh": list(m_hs.shape), **used})
+
+    # Liu-Shen on the kernel, ("y", None) stripes: tol 0 runs all 60 steps
+    m_ls = mesh((1, 4, 1))
+    sl = distributed.local_slices(m_ls, shape, ("y", None))
+    before = counts()
+    u, v, err = liu_shen_solve_sharded(m_ls, pair[0][sl], pair[1][sl], 10.0, zero[sl], zero[sl],
+                                       max_iter=60, tol=0.0)
+    used = per_call(before)
+    u, v = (distributed.gather_global(m_ls, t, ("y", None)) for t in (u, v))
+    if lead:
+        a, b = pair
+        fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
+        ref = liu_shen_iter.liu_shen_iterate(10.0, fields, zero, zero, 60, 0.0)
+        check("liu_shen_solve_sharded (kernel), h 10, 60 steps, tol 0",
+              same((u, v), ref[:2]) and int(ref[3]) == 60 and rel(err, ref[2]) <= 1e-6
+              and used["liu_shen_iterate_launches"] > 0,
+              {"bitwise": same((u, v), ref[:2]), "single_k": int(ref[3]), "err": float(err),
+               "single_err": float(ref[2]), "err_rel": rel(err, ref[2]),
+               "mesh": list(m_ls.shape), **used})
+
+    # the batched pipeline: two pairs over 'batch', tiles over (y, x)
+    m_b = mesh((2, 1, 2))
+    stack = [torch.stack([pair[i], pair1[i]]) for i in (0, 1)]
+    sl = distributed.local_slices(m_b, (2, *shape), distributed.SPEC_BATCH)
+    before = counts()
+    u, v, err = batched_hs_pipeline(m_b, stack[0][sl], stack[1][sl], alpha=21.0, niter=100)
+    used = per_call(before)
+    u, v = (distributed.gather_global(m_b, t, distributed.SPEC_BATCH) for t in (u, v))
+    errs = [None] * world
+    torch.distributed.all_gather_object(errs, (sl[0].start, err.cpu().tolist()))
+    if lead:
+        err_of = {start + i: e for start, es in errs for i, e in enumerate(es)}
+        for k, p in enumerate((pair, pair1)):
+            f = [gaussian_filter_px(im, 3.4, 3) for im in p]
+            ref = hs_solve(*f, 21.0, 100, zero, zero)
+            check(f"batched_hs_pipeline pair {k}, sigma 3.4, alpha 21, 100 iterations",
+                  same((u[k], v[k]), ref[:2]) and rel(err_of[k], ref[2]) <= 1e-6
+                  and used["hs_iterate_launches"] > 0,
+                  {"bitwise": same((u[k], v[k]), ref[:2]), "err": err_of[k],
+                   "single_err": float(ref[2]), "mesh": list(m_b.shape), **used})
+
+    # auto_sharded_pipeline route 1 against run_config
+    fn = auto_sharded_pipeline("HS_Fs3_4", m_hs, _force_sharded=one)
+    sl = distributed.local_slices(m_hs, shape, spec)
+    tiles = [im[sl].contiguous() for im in pair]
+    before = counts()
+    u, v = fn(*tiles)
+    used = per_call(before)
+    u, v = (distributed.gather_global(m_hs, t, spec) for t in (u, v))
+    if lead:
+        ref = run_config("HS_Fs3_4", *pair)
+        d = max(float((g - w).abs().max()) for g, w in zip((u, v), ref))
+        e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
+        check("auto_sharded_pipeline('HS_Fs3_4') route 1 against run_config",
+              (same((u, v), ref) or e <= AEE_BAR) and used["hs_iterate_launches"] > 0,
+              {"bitwise": same((u, v), ref), "max_abs_diff": d, "aee": e,
+               "mesh": list(m_hs.shape), **used})
+
+    # times: CUDA events, and the host's time in the call (the card idle
+    # before it); every rank in step, or rank 0 alone
+    def timed(call, reps=5, together=True):
+        ev, host = [], []
+        for _ in range(reps):
+            if together:
+                torch.distributed.barrier()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            call()
+            host.append(1e3 * (time.perf_counter() - t0))
+            end.record()
+            end.synchronize()
+            ev.append(start.elapsed_time(end))
+        return statistics.median(ev), statistics.median(host)
+
+    def graph_ms(call, replays=10):
+        """The call captured in a CUDA graph and replayed back to back: its
+        device time without the host (one rank: no collective, no host read
+        in route 1)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            call()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        return start.elapsed_time(end) / replays
+
+    ls_tiles = [im[distributed.local_slices(m_ls, shape, ("y", None))].contiguous()
+                for im in (*pair, zero)]
+    t_hs = timed(lambda: fn(*tiles))
+    before = counts()
+    fn(*tiles)
+    hs_used = per_call(before)
+    t_ls = timed(lambda: liu_shen_solve_sharded(m_ls, *ls_tiles[:2], 10.0, ls_tiles[2],
+                                                ls_tiles[2], max_iter=60, tol=0.0))
+    before = counts()
+    liu_shen_solve_sharded(m_ls, *ls_tiles[:2], 10.0, ls_tiles[2], ls_tiles[2], max_iter=60,
+                           tol=0.0)
+    ls_used = per_call(before)
+    torch.distributed.barrier()
+    if lead:
+        from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_solve
+
+        t_hs1 = timed(lambda: run_config("HS_Fs3_4", *pair), together=False)
+        t_ls1 = timed(lambda: liu_shen_solve(*pair, 10.0, zero, zero, 60, 0.0), together=False)
+        device = {}
+        if one:
+            device = {"sharded_hs_fs3_4_graph_device_ms": graph_ms(lambda: fn(*tiles)),
+                      "eager_hs_fs3_4_graph_device_ms": graph_ms(
+                          lambda: run_config("HS_Fs3_4", *pair))}
+        report({"times": "HS_Fs3_4 and the Liu-Shen solve (h 10, 60 steps, tol 0) at "
+                         f"{shape[0]}x{shape[1]}, CUDA-event ms on rank 0, host ms in the call",
+                "sharded_hs_fs3_4_ms": t_hs[0], "sharded_hs_fs3_4_host_ms": t_hs[1],
+                "eager_hs_fs3_4_ms": t_hs1[0], "eager_hs_fs3_4_host_ms": t_hs1[1],
+                "sharded_liu_shen_ms": t_ls[0], "sharded_liu_shen_host_ms": t_ls[1],
+                "eager_liu_shen_ms": t_ls1[0], "eager_liu_shen_host_ms": t_ls1[1], **device,
+                "hs_per_solve": hs_used, "liu_shen_per_solve": ls_used,
+                "meshes": {"hs": list(m_hs.shape), "liu_shen": list(m_ls.shape)},
+                "note": ("one rank: the sharded schedule on one GPU" if one else
+                         "four ranks share one H100: not a scaling figure")})
+    torch.distributed.barrier()
+
+    if not one:
+        # the batch-sharded scan: 16 pairs at 512^2 over four ranks
+        m_s = mesh((4, 1, 1))
+        stacks = [particle_image_pair(shape=(512, 512), seed=s)[:2] for s in range(16)]
+        s1, s2 = (torch.as_tensor(np.stack([p[i] for p in stacks]), device=dev) for i in (0, 1))
+        take = batch_sharding(m_s)
+        scan = batch_sharded_scan("HS_Fs3_4", m_s)
+        us, vs = scan(take(s1), take(s2))
+        us, vs = (distributed.gather_global(m_s, t, ("batch", None, None)) for t in (us, vs))
+        if lead:
+            ref = scan_pipeline("HS_Fs3_4")(s1, s2)
+            check("batch_sharded_scan('HS_Fs3_4'), 16 pairs at 512x512", same((us, vs), ref),
+                  {"bitwise": same((us, vs), ref), "mesh": list(m_s.shape)})
+        # the runner on the campaign's pairs: a run, then a resume
+        from opticalflow_ri_tpu_torch.harness.batch_runner import FlowBatchRunner
+
+        with open(os.path.join(work, "pairs.json")) as f:
+            pairs = [tuple(p) for p in json.load(f)]
+        out = os.path.join(work, "out_mesh")
+        first = FlowBatchRunner("HS_Fs3_4", batch_size=8, output_dir=out, mesh=m_s).run(pairs[:16])
+        state = FlowBatchRunner("HS_Fs3_4", batch_size=8, output_dir=out, mesh=m_s).run(pairs)
+        report({"runner": "FlowBatchRunner(mesh=(4, 1, 1)), batch 8",
+                "first_done": sorted(first["done"]), "done": sorted(state["done"]),
+                "failed": sorted(state["failed"])})
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def run_group(world: int, backend: str, work: str) -> list:
+    """Spawn ``world`` ranks of ``rank_main`` on the one GPU and wait for all;
+    returns rank 0's output lines.  A rank that fails, or a group that
+    outlasts ``PARALLEL_TIMEOUT_S``, stops every rank and raises."""
+    rdv_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(rdv_dir, exist_ok=True)
+    rdv = os.path.join(rdv_dir, f"rendezvous_{backend}_{world}_{os.getpid()}")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    env = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+    env["OMP_NUM_THREADS"] = "1"
+    # each rank's output to files, read once the group has ended: a pipe that
+    # nobody reads would stop a rank that writes more than it holds
+    logs = [tuple(os.path.join(work, f"rank{r}_{backend}{world}.{k}") for k in ("out", "err"))
+            for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r][0], "w") as out, open(logs[r][1], "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+                     str(world), backend, f"file://{rdv}", work],
+                    stdout=out, stderr=err, env=env, cwd=ROOT))
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        if os.path.exists(rdv):
+            os.remove(rdv)
+    outs = []
+    for paths in logs:
+        texts = []
+        for path in paths:
+            with open(path) as f:
+                texts.append(f.read())
+        outs.append(texts)
+    lines = outs[0][0].splitlines()
+    for line in lines:
+        print(f"  [{backend} x{world}] {line}", flush=True)
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r, (_, err) in enumerate(outs):
+            print(f"  [{backend} x{world} rank {r}] exit {codes[r]}; stderr tail:\n"
+                  + "\n".join(err.splitlines()[-25:]), flush=True)
+        raise AssertionError(f"the {backend} group of {world} ranks failed: exit codes {codes}")
+    return lines
 
 
 def main() -> None:
@@ -1206,9 +1578,60 @@ def main() -> None:
                           "compute_wait_s": st["compute_wait_s"],
                           "transfer_save_s": st["transfer_save_s"], "gpu": gpu}), flush=True)
         compiled_pipeline(camp).release()
+        print(f"graph, scan and campaign against eager, not bit for bit: "
+              f"{not_bitwise or 'none'}")
+
+        # ------------------------------------------------------------ 9
+        phase("parallel")
+        masked = masked_parity(dev, rand)
+        # the masked kernels' device time at 2048^2: every side an apron edge
+        # (an interior tile) beside the whole-image call
+        fx, fy, ft = hs_derivatives(rand(PARALLEL_SHAPE, 0, 255), rand(PARALLEL_SHAPE, 0, 255))
+        z = torch.zeros(PARALLEL_SHAPE, device=dev)
+        a, b = rand(PARALLEL_SHAPE, 1, 255), rand(PARALLEL_SHAPE, 1, 255)
+        fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
+        masked_ms = {
+            "hs_jacobi 100 it, edges ALL": device_ms(
+                lambda: hs_iter.hs_iterate(fx, fy, ft, z, z, 1.0, 100), 20),
+            "hs_jacobi 100 it, edges 0": device_ms(
+                lambda: hs_iter.hs_iterate(fx, fy, ft, z, z, 1.0, 100, 0), 20),
+            "liu_shen 60 steps, edges ALL, stop": device_ms(
+                lambda: liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, 0.0), 20),
+            "liu_shen 60 steps, edges 0, stop=False": device_ms(
+                lambda: liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, 0.0, 0, False),
+                20)}
+        print(json.dumps({"masked_device_ms": masked_ms, "shape": list(PARALLEL_SHAPE),
+                          "gpu": gpu}), flush=True)
+        del fx, fy, ft, z, a, b, fields
+        torch.cuda.empty_cache()
+        with open(os.path.join(work, "pairs.json"), "w") as f:
+            json.dump(pairs, f)
+        t0 = time.perf_counter()
+        run_group(1, "nccl", work)
+        t1 = time.perf_counter()
+        lines = run_group(4, "gloo", work)
+        t2 = time.perf_counter()
+        runner = [json.loads(line) for line in lines if '"runner"' in line]
+        if not runner:
+            raise AssertionError("the four-rank group reported no runner result")
+        rec = runner[-1]
+        if rec["first_done"] != sorted(first["done"]) or rec["done"] != sorted(state["done"]) \
+                or rec["failed"] != sorted(state["failed"]):
+            raise AssertionError(f"the mesh runner's done/failed {rec} differ from the "
+                                 f"single-device runner's")
+        for name in rec["done"]:
+            got, want = (scipy.io.loadmat(os.path.join(work, d, f"{name}.mat"))["velocities"]
+                         for d in ("out_mesh", "out"))
+            if not all(np.array_equal(got[k][0, 0], want[k][0, 0]) for k in ("u", "v")):
+                raise AssertionError(f"mesh runner: {name}.mat differs from the single-device "
+                                     f"runner's")
+        print(f"mesh runner: done {len(rec['done'])} and failed {rec['failed']} equal the "
+              f"single-device runner's; every .mat bit for bit")
+        print(json.dumps({"parallel": "groups", "masked_max_abs_diff": masked,
+                          "nccl_1_rank_s": t1 - t0, "gloo_4_ranks_s": t2 - t1, "gpu": gpu}),
+              flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"graph, scan and campaign against eager, not bit for bit: {not_bitwise or 'none'}")
 
     # ---------------------------------------------------------------- result
     # name: (source, the TPU kernel it replaces, the others it also replaces)
@@ -1258,4 +1681,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main()

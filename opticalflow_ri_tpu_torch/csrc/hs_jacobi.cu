@@ -49,6 +49,16 @@
 // value is wrong, but after t iterations only cells within t of such an edge
 // hold wrong values, and the output cells are T deep.
 //
+// Per-side edges.  `edges` holds one bit per side of the array (kTop,
+// kBottom, kLeft, kRight): set, the side is the image's border and takes the
+// mirror rule; clear, it is an apron edge -- the array is one rank's tile of
+// a sharded image, padded on that side by rows or columns of its neighbour's
+// data (parallel/sharded_kernel.py).  The mirror rule does not fire there:
+// a cell on an apron edge reads 0 beyond it (the cells outside the array,
+// which are never updated), so wrong values creep in from that edge as from
+// a tile's interior edge, one cell an iteration, and the caller crops them.
+// All four bits set is the whole-image kernel, bit for bit.
+//
 // Numerics: the association order is that of ops/stencil.py:hs_avg3x3 and
 // models/horn_schunck.py:hs_solve; built with -fmad=false, the kernel equals
 // the plain PyTorch version (ops/cuda/hs_iter.py:hs_iterate_plain) bit for bit.
@@ -67,6 +77,7 @@ constexpr int kBuf = kExt * kExt;
 constexpr size_t kSmemBytes = sizeof(float) * 4 * kBuf;  // row sums: 2 fields x 2 buffers
 constexpr float kTwelfth = static_cast<float>(1.0 / 12.0);
 constexpr int kMaxDevices = 64;
+constexpr int kTop = 1, kBottom = 2, kLeft = 4, kRight = 8;  // the bits of `edges`
 static_assert(32 % kStrips == 0, "a tile row lies in one warp");
 
 // a + 2b and a - 4b as one fused multiply-add each: 2b and 4b are exact in
@@ -77,8 +88,8 @@ __device__ __forceinline__ float add2x(float a, float b) { return __fmaf_rn(2.0f
 __device__ __forceinline__ float sub4x(float a, float b) { return __fmaf_rn(-4.0f, b, a); }
 
 // T iterations of one tile.  kBorder: the extended tile reaches past the
-// image, so cells may lie outside it or on its edge (mirror); false for the
-// tiles inside, which skip those tests.
+// image, so cells may lie outside it or on its edge (mirror where `edges`
+// says so); false for the tiles inside, which skip those tests.
 template <bool kBorder>
 __device__ __forceinline__ void hs_tile(const float* __restrict__ fx,
                                         const float* __restrict__ fy,
@@ -87,7 +98,7 @@ __device__ __forceinline__ void hs_tile(const float* __restrict__ fx,
                                         const float* __restrict__ v_in,
                                         float* __restrict__ u_out, float* __restrict__ v_out,
                                         int h, int w, int T, int nit, int oy, int ox,
-                                        float* smem) {
+                                        int edges, float* smem) {
   const int tile = kExt - 2 * T;
   const int r = threadIdx.x / kStrips;   // tile row
   const int s = threadIdx.x % kStrips;   // columns 4s .. 4s+3
@@ -95,9 +106,9 @@ __device__ __forceinline__ void hs_tile(const float* __restrict__ fx,
   const int gy = oy + r;
   const int gx0 = ox + kCells * s;
   // the rows above and below: mirror at the image border, the row itself at
-  // the tile's interior edge
-  const int rm = kBorder && gy == 0 ? r + 1 : max(r - 1, 0);
-  const int rp = kBorder && gy == h - 1 ? r - 1 : min(r + 1, kExt - 1);
+  // the tile's interior edge (and, at an apron edge, the row of zeros beyond)
+  const int rm = kBorder && (edges & kTop) && gy == 0 ? r + 1 : max(r - 1, 0);
+  const int rp = kBorder && (edges & kBottom) && gy == h - 1 ? r - 1 : min(r + 1, kExt - 1);
   // the neighbours of the 4 columns: lane s-1's last, lane s+1's first (the
   // cell itself at the tile's interior edge)
   const int from_left = s > 0 ? lane - 1 : lane;
@@ -110,8 +121,8 @@ __device__ __forceinline__ void hs_tile(const float* __restrict__ fx,
   for (int j = 0; j < kCells; ++j) {
     const int gx = gx0 + j;
     in[j] = !kBorder || (gy >= 0 && gy < h && gx >= 0 && gx < w);
-    ml[j] = kBorder && gx == 0;
-    mr[j] = kBorder && gx == w - 1;
+    ml[j] = kBorder && (edges & kLeft) && gx == 0;
+    mr[j] = kBorder && (edges & kRight) && gx == w - 1;
     u[j] = v[j] = cfx[j] = cfy[j] = cft[j] = crd[j] = 0.0f;
     if (in[j]) {
       const size_t i = (size_t)gy * w + gx;
@@ -180,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 hs_block_kernel(const float* __restrict__ fx, const float* __restrict__ fy,
                 const float* __restrict__ ft, float alpha, const float* __restrict__ u_in,
                 const float* __restrict__ v_in, float* __restrict__ u_out,
-                float* __restrict__ v_out, int h, int w, int T, int nit) {
+                float* __restrict__ v_out, int h, int w, int T, int nit, int edges) {
   // row sums of u in buffers 0 and 1, of v in 2 and 3
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -190,9 +201,10 @@ hs_block_kernel(const float* __restrict__ fx, const float* __restrict__ fy,
   // a tile whose rows and columns 0 .. kExt-1 all lie strictly inside the
   // image: no cell outside it, none on its edge
   if (oy > 0 && ox > 0 && oy + kExt < h && ox + kExt < w)
-    hs_tile<false>(fx, fy, ft, alpha, u_in, v_in, u_out, v_out, h, w, T, nit, oy, ox, smem);
+    hs_tile<false>(fx, fy, ft, alpha, u_in, v_in, u_out, v_out, h, w, T, nit, oy, ox, edges,
+                   smem);
   else
-    hs_tile<true>(fx, fy, ft, alpha, u_in, v_in, u_out, v_out, h, w, T, nit, oy, ox, smem);
+    hs_tile<true>(fx, fy, ft, alpha, u_in, v_in, u_out, v_out, h, w, T, nit, oy, ox, edges, smem);
 }
 
 }  // namespace
@@ -202,15 +214,19 @@ hs_block_kernel(const float* __restrict__ fx, const float* __restrict__ fy,
 // (u_tmp, v_tmp).  Each launch reads the previous one's destination (the
 // first reads u0, v0); destinations alternate and the last is 0; each count
 // is 1..T.  nlaunch = 0 copies (u0, v0) to the output.  T is the temporal
-// block depth, 1..31.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a plan that breaks these rules.
+// block depth, 1..31.  edges: the sides that are the image's border, a mask
+// of kTop | kBottom | kLeft | kRight (15: the whole image).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan that breaks these
+// rules.
 extern "C" int ofri_hs_iterate(const float* fx, const float* fy, const float* ft,
                                const float* u0, const float* v0, float alpha, int h, int w,
                                int T, const int* plan, int nlaunch, float* u_out, float* v_out,
-                               float* u_tmp, float* v_tmp, int device, cudaStream_t stream) {
+                               float* u_tmp, float* v_tmp, int edges, int device,
+                               cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (h < 2 || w < 2 || T < 1 || T > kMaxT || nlaunch < 0) return cudaErrorInvalidValue;
+  if (h < 2 || w < 2 || T < 1 || T > kMaxT || nlaunch < 0 || edges < 0 || edges > 15)
+    return cudaErrorInvalidValue;
   for (int k = 0; k < nlaunch; ++k) {
     const int n = plan[2 * k];
     const int dst = plan[2 * k + 1];
@@ -241,7 +257,7 @@ extern "C" int ofri_hs_iterate(const float* fx, const float* fy, const float* ft
     float* du = plan[2 * k + 1] == 0 ? u_out : u_tmp;
     float* dv = plan[2 * k + 1] == 0 ? v_out : v_tmp;
     hs_block_kernel<<<grid, kThreads, kSmemBytes, stream>>>(fx, fy, ft, alpha, su, sv, du, dv, h,
-                                                            w, T, plan[2 * k]);
+                                                            w, T, plan[2 * k], edges);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     su = du;

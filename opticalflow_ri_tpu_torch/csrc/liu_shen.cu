@@ -63,6 +63,19 @@
 // reads the cell itself: wrong, but after t steps only cells within t of such
 // an edge hold wrong values, and the output cells are T deep.
 //
+// Per-side edges and the no-stop mode, for a rank's tile of a sharded image
+// (parallel/sharded_kernel.py).  `edges` holds one bit per side (kTop,
+// kBottom, kLeft, kRight): set, the side is the image's border and takes the
+// nearest rule; clear, it is an apron edge, padded by the caller with rows of
+// its neighbour's data, and a cell on it reads 0 beyond it (the cells outside
+// the array), so wrong values creep in from it one cell a step.  The ring
+// term reads 0 outside the array on every side already.  With stop = 0 the
+// solve runs exactly max_iter steps and computes no err: the apron cells
+// hold stale values, and an err over them could come out NaN (err > tol is
+// false for NaN) and stop the solve; the caller computes err on the cells
+// it owns.  All four bits set and stop = 1 is the whole-image solve, bit for
+// bit.
+//
 // Numerics: the association order is that of models/liu_shen.py
 // (ls_field_stencils, ls_ring_sum, liu_shen_iteration); built with
 // -fmad=false, u and v equal the plain PyTorch version
@@ -82,6 +95,7 @@ constexpr int kMaxT = kRows / 2 - 1;       // the output tile keeps >= 2 rows
 constexpr int kBuf = kRows * kCols;
 constexpr size_t kStateSmem = sizeof(float) * 4 * kBuf;  // u, v: 2 fields x 2 buffers
 constexpr int kMaxDevices = 64;
+constexpr int kTop = 1, kBottom = 2, kLeft = 4, kRight = 8;  // the bits of `edges`
 static_assert(kCells == 4, "a thread's cells are one float4 in shared memory");
 static_assert(32 % kStrips == 0, "a tile row lies in one warp");
 static_assert(kMaxT <= kWarps, "one warp adds each step's slots");
@@ -125,15 +139,16 @@ int num_blocks(int h, int w, int T) {
 
 size_t smem_bytes(int T) { return kStateSmem + sizeof(double2) * (size_t)T * kThreads; }
 
-__global__ void ls_init_kernel(LsState* st, int active) {
+// stop = 0: the solve runs max_iter steps without err, into kOut
+__global__ void ls_init_kernel(LsState* st, int active, int stop, int max_iter) {
   st->active = active;
-  st->k = 0;
-  st->err = 1e8f;
+  st->k = stop ? 0 : max(max_iter, 0);
+  st->err = stop ? 1e8f : __int_as_float(0x7fc00000);  // no err: NaN
   st->ticket = 0u;
   st->replay_n = 0;
   st->replay_src = kIn;
   st->replay_dst = kOut;
-  st->final_buf = kIn;
+  st->final_buf = stop ? kIn : kOut;
 }
 
 // The left and right neighbours of cell j in a row of 4 cells x, with lx, rx
@@ -157,7 +172,7 @@ __device__ __forceinline__ void ls_tile(const LsFields& f, float hreg,
                                         const float* __restrict__ u_in,
                                         const float* __restrict__ v_in, float* __restrict__ u_out,
                                         float* __restrict__ v_out, int h, int w, int T, int nit,
-                                        int oy, int ox, float* smem, double2* slots) {
+                                        int oy, int ox, int edges, float* smem, double2* slots) {
   const int tile_r = kRows - 2 * T;
   const int tile_c = kCols - 2 * T;
   const int r = threadIdx.x / kStrips;   // tile row
@@ -166,9 +181,10 @@ __device__ __forceinline__ void ls_tile(const LsFields& f, float hreg,
   const int gy = oy + r;
   const int gx0 = ox + kCells * s;
   // the rows above and below: the row itself at the image border
-  // ("nearest") and at the tile's interior edge
-  const int rm = kBorder && gy == 0 ? r : max(r - 1, 0);
-  const int rp = kBorder && gy == h - 1 ? r : min(r + 1, kRows - 1);
+  // ("nearest") and at the tile's interior edge (and, at an apron edge, the
+  // row of zeros beyond)
+  const int rm = kBorder && (edges & kTop) && gy == 0 ? r : max(r - 1, 0);
+  const int rp = kBorder && (edges & kBottom) && gy == h - 1 ? r : min(r + 1, kRows - 1);
   // the ring term's zero border, by side
   const bool hn = !kBorder || gy > 0;
   const bool hs = !kBorder || gy < h - 1;
@@ -185,8 +201,8 @@ __device__ __forceinline__ void ls_tile(const LsFields& f, float hreg,
     const int gx = gx0 + j;
     const int c = kCells * s + j;
     in[j] = !kBorder || (gy >= 0 && gy < h && gx >= 0 && gx < w);
-    cl[j] = kBorder && gx == 0;
-    cr[j] = kBorder && gx == w - 1;
+    cl[j] = kBorder && (edges & kLeft) && gx == 0;
+    cr[j] = kBorder && (edges & kRight) && gx == w - 1;
     own[j] = in[j] && own_row && c >= T && c < T + tile_c;
     u[j] = v[j] = c_iix[j] = c_iiy[j] = c_ii[j] = c_ixt[j] = c_iyt[j] = 0.0f;
     c_b11[j] = c_b12[j] = c_b22[j] = 0.0f;
@@ -310,12 +326,13 @@ __device__ __forceinline__ void ls_tile(const LsFields& f, float hreg,
 }
 
 // One launch of up to T steps.  A step launch (replay = 0) runs nit steps
-// from buffer src into dst and settles the stop; the replay launch
-// (replay = 1) re-runs st->replay_n steps of the launch that stopped, or
-// returns at once.
+// from buffer src into dst and settles the stop (unless stop = 0); the
+// replay launch (replay = 1) re-runs st->replay_n steps of the launch that
+// stopped, or returns at once.
 __global__ void __launch_bounds__(kThreads, 1)
 ls_block_kernel(LsFields f, float hreg, LsBuffers bufs, int src, int dst, int h, int w, int T,
-                int nit, int max_iter, float tol, LsState* st, double2* partials, int replay) {
+                int nit, int max_iter, float tol, LsState* st, double2* partials, int replay,
+                int edges, int stop) {
   if (replay) {
     nit = st->replay_n;
     if (nit == 0) return;
@@ -328,7 +345,7 @@ ls_block_kernel(LsFields f, float hreg, LsBuffers bufs, int src, int dst, int h,
   }
   extern __shared__ double2 smem2[];
   float* smem = reinterpret_cast<float*>(smem2);
-  double2* slots = replay ? nullptr : reinterpret_cast<double2*>(smem + 4 * kBuf);
+  double2* slots = replay || !stop ? nullptr : reinterpret_cast<double2*>(smem + 4 * kBuf);
   __shared__ double2 sums[kMaxT];
   __shared__ bool last;
   const int tile_r = kRows - 2 * T;
@@ -340,12 +357,12 @@ ls_block_kernel(LsFields f, float hreg, LsBuffers bufs, int src, int dst, int h,
   // a tile whose rows and columns all lie strictly inside the image: no cell
   // outside it, none on its edge
   if (oy > 0 && ox > 0 && oy + kRows < h && ox + kCols < w)
-    ls_tile<false>(f, hreg, bufs.u[src], bufs.v[src], u_out, v_out, h, w, T, nit, oy, ox, smem,
-                   slots);
+    ls_tile<false>(f, hreg, bufs.u[src], bufs.v[src], u_out, v_out, h, w, T, nit, oy, ox, edges,
+                   smem, slots);
   else
-    ls_tile<true>(f, hreg, bufs.u[src], bufs.v[src], u_out, v_out, h, w, T, nit, oy, ox, smem,
-                  slots);
-  if (replay) return;
+    ls_tile<true>(f, hreg, bufs.u[src], bufs.v[src], u_out, v_out, h, w, T, nit, oy, ox, edges,
+                  smem, slots);
+  if (replay || !stop) return;
 
   // each step's block sum of the slots, one warp a step, in thread order
   __syncthreads();
@@ -395,12 +412,12 @@ ls_block_kernel(LsFields f, float hreg, LsBuffers bufs, int src, int dst, int h,
     const double npix = (double)h * (double)w;
     int k = k0;
     float err = st->err;
-    int stop = 0;
+    int halt = 0;
     for (int i = 0; i < nit; ++i) {
       err = (float)((sqrt(sums[i].x) + sqrt(sums[i].y)) / npix);
       k = k0 + i + 1;
       if (!(err > tol && k < max_iter)) {
-        stop = i + 1;
+        halt = i + 1;
         break;
       }
     }
@@ -408,10 +425,10 @@ ls_block_kernel(LsFields f, float hreg, LsBuffers bufs, int src, int dst, int h,
     st->err = err;
     st->final_buf = dst;
     st->ticket = 0u;
-    if (stop > 0) {
+    if (halt > 0) {
       st->active = 0;
-      if (stop < nit) {  // iteration k lies inside this launch: replay it
-        st->replay_n = stop;
+      if (halt < nit) {  // iteration k lies inside this launch: replay it
+        st->replay_n = halt;
         st->replay_src = src;
         st->replay_dst = dst;
       }
@@ -453,20 +470,25 @@ extern "C" size_t ofri_liu_shen_workspace_bytes(int h, int w, int T) {
 // counts add up to max_iter (nlaunch = 0 for max_iter <= 0).  T is 1..15.
 // The result lands in (u_out, v_out), err in *err_out and the iteration count
 // in *k_out (both device pointers).  workspace holds
-// ofri_liu_shen_workspace_bytes(h, w, T) bytes.  Enqueues everything on
-// `stream` without waiting; returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments that break these rules.
+// ofri_liu_shen_workspace_bytes(h, w, T) bytes.  edges: the sides that are
+// the image's border, a mask of kTop | kBottom | kLeft | kRight (15: the
+// whole image).  stop = 0 runs all max_iter steps and writes err = NaN.
+// Enqueues everything on `stream` without waiting; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments that break
+// these rules.
 extern "C" int ofri_liu_shen_iterate(const float* iix, const float* iiy, const float* ii,
                                      const float* ixt, const float* iyt, const float* b11,
                                      const float* b12, const float* b22, float hreg,
                                      const float* u0, const float* v0, int max_iter, float tol,
                                      int h, int w, int T, const int* plan, int nlaunch,
                                      float* u_out, float* v_out, float* u_tmp, float* v_tmp,
-                                     float* err_out, int* k_out, void* workspace, int device,
-                                     cudaStream_t stream) {
+                                     float* err_out, int* k_out, void* workspace, int edges,
+                                     int stop, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (h < 2 || w < 2 || T < 1 || T > kMaxT || nlaunch < 0) return cudaErrorInvalidValue;
+  if (h < 2 || w < 2 || T < 1 || T > kMaxT || nlaunch < 0 || edges < 0 || edges > 15 ||
+      (stop != 0 && stop != 1))
+    return cudaErrorInvalidValue;
   int total = 0;
   for (int k = 0; k < nlaunch; ++k) {
     const int n = plan[2 * k];
@@ -483,8 +505,8 @@ extern "C" int ofri_liu_shen_iterate(const float* iix, const float* iiy, const f
   const LsFields f{iix, iiy, ii, ixt, iyt, b11, b12, b22};
   const LsBuffers bufs{{u_out, u_tmp, u0}, {v_out, v_tmp, v0}};
   // the first check of the XLA loop: err = 1e8 > tol and 0 < max_iter
-  const int active = (max_iter > 0) && (1e8f > tol);
-  ls_init_kernel<<<1, 1, 0, stream>>>(st, active);
+  const int active = (max_iter > 0) && (!stop || 1e8f > tol);
+  ls_init_kernel<<<1, 1, 0, stream>>>(st, active, stop, max_iter);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -506,16 +528,18 @@ extern "C" int ofri_liu_shen_iterate(const float* iix, const float* iiy, const f
       const int dst = plan[2 * k + 1];
       ls_block_kernel<<<grid, kThreads, bytes, stream>>>(f, hreg, bufs, src, dst, h, w, T,
                                                          plan[2 * k], max_iter, tol, st,
-                                                         partials, 0);
+                                                         partials, 0, edges, stop);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
       src = dst;
     }
     // the replay: returns at once unless the stop fell inside a launch
-    ls_block_kernel<<<grid, kThreads, kStateSmem, stream>>>(f, hreg, bufs, kIn, kOut, h, w, T, 0,
-                                                            max_iter, tol, st, partials, 1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (stop) {
+      ls_block_kernel<<<grid, kThreads, kStateSmem, stream>>>(
+          f, hreg, bufs, kIn, kOut, h, w, T, 0, max_iter, tol, st, partials, 1, edges, stop);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
   }
   const int n = h * w;
   ls_finish_kernel<<<(n + 255) / 256, 256, 0, stream>>>(bufs, u_out, v_out, n, st, err_out,

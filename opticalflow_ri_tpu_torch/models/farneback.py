@@ -26,7 +26,7 @@ as in the JAX package.
 
 Not ported yet: the kernel-sharded branch of the adapter
 (``models/farneback.py:575-600``, ``parallel/context.py``); it comes with
-the multi-GPU slice (ROADMAP.md Queue 1, item 8).
+a later multi-GPU slice (ROADMAP.md Queue 1, item 4.2).
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ from the JAX package:
     way in and out.
 
 Not ported yet: the kernel-sharded branch of the adapter
-(``models/liu_shen.py:209-228``, ``parallel/context.py``); it comes with the
-multi-GPU slice (ROADMAP.md Queue 1, item 8).
+(``models/liu_shen.py:209-228``, ``parallel/context.py``); it comes with
+a later multi-GPU slice (ROADMAP.md Queue 1, item 4.2).
 """
 
 from __future__ import annotations

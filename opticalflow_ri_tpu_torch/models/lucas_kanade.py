@@ -27,7 +27,7 @@ and ``"pallas_striped"`` choose TPU VMEM layouts and raise here.
 
 Not ported yet: the kernel-sharded branch of the adapter
 (``models/lucas_kanade.py:502-525``, ``parallel/context.py``); it comes with
-the multi-GPU slice (ROADMAP.md Queue 1, item 8).
+a later multi-GPU slice (ROADMAP.md Queue 1, item 4.2).
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ runs up to ``STEPS_PER_LAUNCH`` iterations on a tile.  ``launch_plan``
 splits a solve into those launches.  ``hs_iterate_plain`` is
 the same iteration in PyTorch, in the XLA loop's operation order
 (``models/horn_schunck.py:100-112``); CPU tensors take it.
+
+``edges`` says which sides of the array are the image's border (``TOP``,
+``BOTTOM``, ``LEFT``, ``RIGHT``; ``ALL`` by default, the whole image).  A
+side left out is an apron edge: the array is one rank's tile of a sharded
+image, padded there with its neighbour's rows or columns
+(``parallel/sharded_kernel.py``), and the iteration reads 0 beyond it in
+place of the mirror.
 """
 
 from __future__ import annotations
@@ -19,11 +26,11 @@ import numpy as np
 import torch
 
 from opticalflow_ri_tpu_torch.ops.cuda import build
-from opticalflow_ri_tpu_torch.ops.stencil import hs_avg3x3
+from opticalflow_ri_tpu_torch.ops.stencil import hs_avg3x3, hs_avg3x3_padded
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
-    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 
 # Iterations per launch (the temporal block depth T of csrc/hs_jacobi.cu), set
@@ -31,6 +38,8 @@ _ARGTYPES = (
 STEPS_PER_LAUNCH = 8
 MAX_STEPS_PER_LAUNCH = 31
 OUT, TMP = 0, 1  # the kernel's destination buffers
+TOP, BOTTOM, LEFT, RIGHT = 1, 2, 4, 8  # the bits of ``edges``: the image's border sides
+ALL = TOP | BOTTOM | LEFT | RIGHT
 
 
 @lru_cache(maxsize=None)
@@ -62,20 +71,45 @@ def _entry():
     return entry
 
 
-def hs_iterate_plain(fx, fy, ft, u0, v0, alpha, niter: int):
+def pad1_edges(x: torch.Tensor, edges: int, mode: str) -> torch.Tensor:
+    """``x`` padded by one cell on each side: by the border ``mode``
+    ("mirror" or "nearest") on the sides in ``edges``, by zeros on the
+    others; rows first, then columns, so the corners take the column rule
+    of the padded rows."""
+    src = {"mirror": (1, -2), "nearest": (0, -1)}[mode]
+    h, w = x.shape[-2], x.shape[-1]
+
+    def side(z, bit, i, dim):
+        if edges & bit:
+            return z.narrow(dim, i, 1)
+        return torch.zeros_like(z.narrow(dim, 0, 1))
+
+    x = torch.cat([side(x, TOP, src[0], -2), x, side(x, BOTTOM, h + src[1], -2)], dim=-2)
+    return torch.cat([side(x, LEFT, src[0], -1), x, side(x, RIGHT, w + src[1], -1)], dim=-1)
+
+
+def hs_avg3x3_edges(x: torch.Tensor, edges: int) -> torch.Tensor:
+    """``hs_avg3x3(x, "mirror")`` with the mirror only on the sides in
+    ``edges`` and zeros beyond the others, in the same operation order."""
+    if edges == ALL:
+        return hs_avg3x3(x, "mirror")
+    return hs_avg3x3_padded(pad1_edges(x, edges, "mirror"), x.shape[-2], x.shape[-1])
+
+
+def hs_iterate_plain(fx, fy, ft, u0, v0, alpha, niter: int, edges: int = ALL):
     """``niter`` Jacobi iterations with the reciprocal 1/(α²+fx²+fy²) hoisted."""
     a = np.float32(alpha)
     rdenom = 1.0 / (float(a * a) + fx * fx + fy * fy)
     u, v = u0, v0
     for _ in range(int(niter)):
-        u_avg = hs_avg3x3(u, "mirror")
-        v_avg = hs_avg3x3(v, "mirror")
+        u_avg = hs_avg3x3_edges(u, edges)
+        v_avg = hs_avg3x3_edges(v, edges)
         der = (fx * u_avg + fy * v_avg + ft) * rdenom
         u, v = u_avg - fx * der, v_avg - fy * der
     return u, v
 
 
-def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int):
+def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int, edges: int = ALL):
     """Run ``niter`` HS Jacobi iterations; returns (u, v).
 
     Same (fx, fy, ft, u0, v0, alpha, niter) -> (u, v) contract as the TPU
@@ -83,8 +117,10 @@ def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int):
     kernel (one C call enqueues the launches of ``launch_plan``, with
     ``STEPS_PER_LAUNCH`` iterations each).
     """
+    if not 0 <= int(edges) <= ALL:
+        raise ValueError(f"edges must be a mask of TOP, BOTTOM, LEFT, RIGHT, got {edges}")
     if fx.device.type == "cpu":
-        return hs_iterate_plain(fx, fy, ft, u0, v0, alpha, niter)
+        return hs_iterate_plain(fx, fy, ft, u0, v0, alpha, niter, edges)
     build.check_fields("hs_iterate", fx, fy, ft, u0, v0)
     steps = STEPS_PER_LAUNCH
     plan = launch_plan(int(niter), steps)
@@ -99,7 +135,7 @@ def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int):
     rc = entry(fx.data_ptr(), fy.data_ptr(), ft.data_ptr(), u0.data_ptr(), v0.data_ptr(),
                float(np.float32(alpha)), h, w, steps, ctypes.cast(table, ctypes.c_void_p),
                len(plan), u_out.data_ptr(), v_out.data_ptr(), u_tmp.data_ptr(), v_tmp.data_ptr(),
-               fx.device.index or 0, stream)
+               int(edges), fx.device.index or 0, stream)
     build.check(rc, "hs_iterate")
     return u_out, v_out
 

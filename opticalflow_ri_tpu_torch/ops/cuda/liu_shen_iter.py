@@ -21,6 +21,13 @@ and ``models/liu_shen.py`` re-exports it.
 Both return ``(u, v, err, k)``: the TPU kernels' (u, v, err) and the number
 of iterations run, as 0-d tensors on the flow's device (err float32, 0 when
 no iteration ran; k int32).
+
+For a rank's tile of a sharded image (``parallel/sharded_kernel.py``) both
+take ``edges``, the sides that are the image's border (``hs_iter.TOP`` ...,
+``ALL`` by default): beyond a side left out the iteration reads 0 in place of
+the nearest rule.  ``stop=False`` runs exactly ``max_iter`` steps and
+computes no err (NaN is returned; k = max_iter): the caller takes err on the
+cells it owns.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 2
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 # Steps per launch (the temporal block depth T of csrc/liu_shen.cu), set by
@@ -47,6 +54,7 @@ _ARGTYPES = (
 STEPS_PER_LAUNCH = 6
 MAX_STEPS_PER_LAUNCH = 15
 OUT, TMP, IN = 0, 1, 2  # the kernel's buffers: output pair, scratch pair, (u0, v0)
+ALL = hs_iter.ALL       # every side the image's border
 
 
 def launch_plan(max_iter: int, steps: int) -> tuple:
@@ -103,13 +111,18 @@ def ls_ring_sum(zp, out_h: int, out_w: int):
     return q - zp[..., 1 : out_h + 1, 1 : out_w + 1]
 
 
-def liu_shen_iteration(u, v, fields, h):
-    """One fixed-point update (``models/liu_shen.py:101-115``)."""
+def liu_shen_iteration(u, v, fields, h, edges: int = ALL):
+    """One fixed-point update (``models/liu_shen.py:101-115``); the nearest
+    rule on the sides in ``edges``, zeros beyond the others."""
     iix, iiy, ii, ixt, iyt, b11, b12, b22 = fields
     h = float(np.float32(h))
     oh, ow = u.shape[-2], u.shape[-1]
-    du1, du2, fu1, _, mu = ls_field_stencils(pad2d(u, 1, "nearest"), oh, ow)
-    dv1, dv2, _, fv2, mv = ls_field_stencils(pad2d(v, 1, "nearest"), oh, ow)
+
+    def nearest(z):
+        return pad2d(z, 1, "nearest") if edges == ALL else hs_iter.pad1_edges(z, edges, "nearest")
+
+    du1, du2, fu1, _, mu = ls_field_stencils(nearest(u), oh, ow)
+    dv1, dv2, _, fv2, mv = ls_field_stencils(nearest(v), oh, ow)
     ring_u = ls_ring_sum(pad2d(u, 1, "constant"), oh, ow)
     ring_v = ls_ring_sum(pad2d(v, 1, "constant"), oh, ow)
     bu = iix * (2.0 * du1 + dv2) + iiy * dv1 + ii * (fu1 + mv) + h * ring_u + ixt
@@ -119,16 +132,24 @@ def liu_shen_iteration(u, v, fields, h):
     return u_new, v_new
 
 
-def liu_shen_iterate_plain(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8):
+def liu_shen_iterate_plain(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8,
+                           edges: int = ALL, stop: bool = True):
     """The XLA while loop in PyTorch: err = (‖Δu‖_F + ‖Δv‖_F)/(H·W), compared
-    with tol in float32 as JAX compares them."""
+    with tol in float32 as JAX compares them.  ``stop=False``: exactly
+    ``max_iter`` steps, no err (NaN)."""
+    if not stop:
+        u, v, n = u0, v0, max(0, int(max_iter))
+        for _ in range(n):
+            u, v = liu_shen_iteration(u, v, fields, h, edges)
+        err = torch.tensor(float("nan") if n else 0.0, dtype=torch.float32, device=u0.device)
+        return u, v, err, torch.tensor(n, dtype=torch.int32, device=u0.device)
     tol = float(np.float32(tol))
     npix = float(u0.shape[-2] * u0.shape[-1])
     u, v = u0, v0
     err = torch.zeros((), dtype=torch.float32, device=u0.device)
     last, k = float(np.float32(1e8)), 0
     while last > tol and k < int(max_iter):
-        u_new, v_new = liu_shen_iteration(u, v, fields, h)
+        u_new, v_new = liu_shen_iteration(u, v, fields, h, edges)
         err = (torch.linalg.norm(u_new - u) + torch.linalg.norm(v_new - v)) / npix
         last = float(err)
         u, v = u_new, v_new
@@ -136,7 +157,8 @@ def liu_shen_iterate_plain(h, fields, u0, v0, max_iter: int = 60, tol: float = 1
     return u, v, err, torch.tensor(k, dtype=torch.int32, device=u0.device)
 
 
-def liu_shen_iterate(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8):
+def liu_shen_iterate(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8,
+                     edges: int = ALL, stop: bool = True):
     """Run the Liu-Shen fixed-point solve on the 8 precomputed fields
     (iix, iiy, ii, ixt, iyt, b11, b12, b22); returns (u, v, err, k).
 
@@ -145,8 +167,10 @@ def liu_shen_iterate(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8):
     launches of ``launch_plan``, which return at once after the stop, the
     replay launch and a finish launch).
     """
+    if not 0 <= int(edges) <= ALL:
+        raise ValueError(f"edges must be a mask of TOP, BOTTOM, LEFT, RIGHT, got {edges}")
     if fields[0].device.type == "cpu":
-        return liu_shen_iterate_plain(h, fields, u0, v0, max_iter, tol)
+        return liu_shen_iterate_plain(h, fields, u0, v0, max_iter, tol, edges, stop)
     build.check_fields("liu_shen_iterate", *fields, u0, v0)
     rows, cols = u0.shape
     dev = u0.device
@@ -169,7 +193,8 @@ def liu_shen_iterate(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8):
                v0.data_ptr(), int(max_iter), float(np.float32(tol)), rows, cols, steps,
                ctypes.cast(table, ctypes.c_void_p), len(plan), u_out.data_ptr(),
                v_out.data_ptr(), u_tmp.data_ptr(), v_tmp.data_ptr(), err.data_ptr(),
-               k.data_ptr(), workspace.data_ptr(), dev.index or 0, stream)
+               k.data_ptr(), workspace.data_ptr(), int(edges), int(bool(stop)), dev.index or 0,
+               stream)
     build.check(rc, "liu_shen_iterate")
     return u_out, v_out, err, k
 

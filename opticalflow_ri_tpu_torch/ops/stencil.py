@@ -46,6 +46,33 @@ def hs_avg3x3(x: torch.Tensor, mode: str = "mirror") -> torch.Tensor:
     return (q - 4.0 * x) * TWELFTH
 
 
+def hs_avg3x3_padded(xp: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``hs_avg3x3`` on an array already padded by one cell (or more: the
+    first out_h + 2 rows and out_w + 2 columns are read), its halo supplied
+    by a neighbour exchange rather than a border rule
+    (``ops/stencil.py:69-76``)."""
+    p = xp[..., :, :out_w] + 2.0 * xp[..., :, 1 : out_w + 1] + xp[..., :, 2 : out_w + 2]
+    q = p[..., :out_h, :] + 2.0 * p[..., 1 : out_h + 1, :] + p[..., 2 : out_h + 2, :]
+    return (q - 4.0 * xp[..., 1 : out_h + 1, 1 : out_w + 1]) * TWELFTH
+
+
+def correlate3x3_padded(xp: torch.Tensor, k: np.ndarray, out_h: int, out_w: int) -> torch.Tensor:
+    """``correlate3x3`` on an array already padded by one cell, the taps in
+    the same order (``ops/stencil.py:79-96``)."""
+    k = np.asarray(k, dtype=np.float32)
+    if k.shape != (3, 3):
+        raise ValueError(f"correlate3x3_padded takes a 3x3 kernel, got {k.shape}")
+    out = None
+    for i in range(3):
+        for j in range(3):
+            wt = float(k[i, j])
+            if wt == 0.0:
+                continue
+            term = xp[..., i : i + out_h, j : j + out_w] * wt
+            out = term if out is None else out + term
+    return torch.zeros_like(xp[..., :out_h, :out_w]) if out is None else out
+
+
 def hs_derivatives(im1: torch.Tensor, im2: torch.Tensor):
     """Horn-Schunck 2x2 derivative stencils (``ops/stencil.py:99-129``).
 

@@ -183,6 +183,38 @@ def test_wrappers_reject_bad_tensors(dev):
         liu_shen_iter.liu_shen_iterate(1.0, (z,) * 8, z, torch.zeros((16, 8), device=dev), 1, 0.0)
 
 
+EDGES = list(range(16))  # every mask of TOP | BOTTOM | LEFT | RIGHT
+
+
+@pytest.mark.parametrize("shape", [(47, 61), (333, 517)])
+@pytest.mark.parametrize("edges", EDGES)
+def test_hs_kernel_masked_equals_plain(dev, shape, edges):
+    """The per-side border mask of a sharded tile: the whole array, apron
+    edges included, bit for bit, at 1, T-1 and T iterations."""
+    fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=5)
+    for niter in (1, T - 1, T):
+        got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter, edges)
+        want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter, edges)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(47, 61), (333, 517)])
+@pytest.mark.parametrize("edges", EDGES)
+def test_ls_kernel_masked_equals_plain(dev, shape, edges):
+    """The mask with the stop (tol 0: 1 and T steps) and without it
+    (2T + 1 steps, err NaN, k = max_iter)."""
+    fields, u0, v0 = _ls_inputs(np.random.default_rng(6), shape, dev)
+    for n, stop in ((1, True), (T_LS, True), (2 * T_LS + 1, False)):
+        got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, n, 0.0, edges, stop)
+        want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, n, 0.0, edges, stop)
+        torch.cuda.synchronize()
+        assert int(got[3]) == int(want[3]) == n
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(torch.isnan(got[2])) == (not stop)
+
+
 @pytest.mark.parametrize("name", ["HS_Fs3_4", "HS_Fs3_4_PyrLvls2", "PyHSchunck_Fs3_4_PyrLvls2"])
 def test_pipeline_on_card_matches_cpu(dev, name):
     im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
