@@ -78,7 +78,8 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                transfer + save time on a fresh campaign;
   9. parallel — the multi-GPU layer (``opticalflow_ri_tpu_torch.parallel``):
                K1 and K4/K5 with all 16 per-side ``edges`` masks against their
-               plain versions at 47x61 and 333x517, bit for bit; then two
+               plain versions at 47x61 and 333x517, bit for bit, and at the
+               shapes, masks and step counts the ranks give them; then two
                groups of ranks spawned as ``chip_smoke.py --parallel-rank``
                (the kernels built once, here, before): one NCCL rank, and
                four gloo ranks sharing the one GPU (halos staged through
@@ -301,12 +302,15 @@ PARALLEL_SHAPE = (2048, 2048)
 PARALLEL_TIMEOUT_S = 420   # one spawned group, start-up included
 
 
-def masked_parity(dev, rand) -> dict:
+def masked_parity(dev, rand, timed) -> dict:
     """K1 and K4/K5 with every ``edges`` mask against their plain versions on
     the card, bit for bit (the whole array, apron edges included): HS at 1,
     T-1 and T iterations, Liu-Shen at 1 and T steps with the stop (tol 0,
-    k = max_iter) and at 2T + 1 steps with stop=False.  Returns the largest
-    difference per kernel (0 when bit for bit)."""
+    k = max_iter) and at 2T + 1 steps with stop=False; then the shapes,
+    masks and step counts that the parallel phase's ranks give them at
+    2048^2, and ``timed``, the 2048^2 inputs of the masked device times
+    (every side an apron edge).  Returns the largest difference per kernel
+    (0 when bit for bit)."""
     import torch
 
     from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
@@ -315,38 +319,89 @@ def masked_parity(dev, rand) -> dict:
 
     t_hs, t_ls = hs_iter.STEPS_PER_LAUNCH, liu_shen_iter.STEPS_PER_LAUNCH
     worst = {"hs_jacobi": 0.0, "liu_shen": 0.0}
-    for shape in [(47, 61), (333, 517)]:
+    bad = []
+
+    def hs(fx, fy, ft, u0, v0, alpha, niter, edges):
+        got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, alpha, niter, edges)
+        want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, alpha, niter, edges)
+        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        worst["hs_jacobi"] = max(worst["hs_jacobi"], d)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            bad.append(("hs_jacobi", tuple(fx.shape), edges, niter, d))
+
+    def ls(fields, u0, v0, n, edges, stop):
+        got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, n, 0.0, edges, stop)
+        want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, n, 0.0, edges, stop)
+        d = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+        worst["liu_shen"] = max(worst["liu_shen"], d)
+        same = all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))
+        if not (same and int(got[3]) == int(want[3]) == n):
+            bad.append(("liu_shen", tuple(u0.shape), edges, n, stop, d, int(got[3]),
+                        int(want[3])))
+        if not stop and n and not bool(torch.isnan(got[2])):
+            bad.append(("liu_shen err without the stop", edges, float(got[2])))
+
+    def hs_input(shape):
         fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
-        u0, v0 = rand(shape, -2, 2), rand(shape, -2, 2)
+        return fx, fy, ft, rand(shape, -2, 2), rand(shape, -2, 2)
+
+    def ls_input(shape):
         a, b = rand(shape, 1, 255), rand(shape, 1, 255)
-        fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
-        lu, lv = rand(shape, -0.5, 0.5), rand(shape, -0.5, 0.5)
-        bad = []
-        for edges in range(16):
-            for niter in (1, t_hs - 1, t_hs):
-                got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter, edges)
-                want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter, edges)
-                d = max(float((g - w).abs().max()) for g, w in zip(got, want))
-                worst["hs_jacobi"] = max(worst["hs_jacobi"], d)
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    bad.append(("hs_jacobi", edges, niter, d))
-            for n, stop in ((1, True), (t_ls, True), (2 * t_ls + 1, False)):
-                got = liu_shen_iter.liu_shen_iterate(10.0, fields, lu, lv, n, 0.0, edges, stop)
-                want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, lu, lv, n, 0.0, edges,
-                                                            stop)
-                d = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
-                worst["liu_shen"] = max(worst["liu_shen"], d)
-                same = all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))
-                if not (same and int(got[3]) == int(want[3]) == n):
-                    bad.append(("liu_shen", edges, n, stop, d, int(got[3]), int(want[3])))
-                if not stop and not bool(torch.isnan(got[2])):
-                    bad.append(("liu_shen err without the stop", edges, float(got[2])))
+        return (liu_shen_precompute(a / a.max(), b / b.max(), 10.0), rand(shape, -0.5, 0.5),
+                rand(shape, -0.5, 0.5))
+
+    def verdict(what):
         torch.cuda.synchronize()
-        print(f"masked kernels {shape}: 16 edges masks, HS at 1, {t_hs - 1}, {t_hs} iterations, "
-              f"Liu-Shen at 1 and {t_ls} steps (stop) and {2 * t_ls + 1} (stop=False): "
-              f"max|d| {worst} (bar: bitwise) failures {bad or 'none'}", flush=True)
+        print(f"masked kernels, {what}: max|d| {worst} (bar: bitwise) failures {bad or 'none'}",
+              flush=True)
         if bad:
             raise AssertionError(f"masked kernels disagree with their plain versions: {bad}")
+
+    for shape in [(47, 61), (333, 517)]:
+        hs_in, ls_in = hs_input(shape), ls_input(shape)
+        for edges in range(16):
+            for niter in (1, t_hs - 1, t_hs):
+                hs(*hs_in, 21.0, niter, edges)
+            for n, stop in ((1, True), (t_ls, True), (2 * t_ls + 1, False)):
+                ls(*ls_in, n, edges, stop)
+        verdict(f"{shape}: 16 edges masks, HS at 1, {t_hs - 1}, {t_hs} iterations, Liu-Shen "
+                f"at 1 and {t_ls} steps (stop) and {2 * t_ls + 1} (stop=False)")
+
+    # the parallel phase's calls at 2048^2 (parallel/sharded_kernel.py): HS
+    # tiles of the (1, 2, 2) mesh, 1024^2 and a T-deep apron on their two
+    # interior sides, of the (2, 1, 2) mesh, 2048 x 1024 and one; the
+    # 100-iteration solve runs launches of T and a last of 100 mod T
+    big, (top, bot, left, right) = PARALLEL_SHAPE, (hs_iter.TOP, hs_iter.BOTTOM, hs_iter.LEFT,
+                                                    hs_iter.RIGHT)
+    hy, wx = big[0] // 2, big[1] // 2
+    for shape, masks in (((hy + t_hs, wx + t_hs), (top | left, top | right, bot | left,
+                                                   bot | right)),
+                         ((big[0], wx + t_hs), (top | bot | left, top | bot | right))):
+        tile = hs_input(shape)
+        for edges in masks:
+            for niter in sorted({t_hs, 100 % t_hs or t_hs}):
+                hs(*tile, 21.0, niter, edges)
+    # Liu-Shen stripes of the (1, 4, 1) mesh: 512 rows and the T-block's t
+    # on each interior side, t - 1 steps then 1, without the stop
+    from opticalflow_ri_tpu_torch.parallel.sharded_kernel import ls_shard_kernel_supported
+
+    hl = big[0] // 4
+    t = next(t for t in (16, 8, 4) if ls_shard_kernel_supported(hl, big[1], t))
+    for rows, edges in ((hl + t, top | left | right), (hl + 2 * t, left | right),
+                        (hl + t, bot | left | right)):
+        stripe = ls_input((rows, big[1]))
+        for n in (t - 1, 1):
+            ls(*stripe, n, edges, False)
+    del tile, stripe
+    # the inputs timed in the parallel phase, every side an apron edge
+    fx, fy, ft, z, fields = timed
+    hs(fx, fy, ft, z, z, 1.0, 100, 0)
+    ls(fields, z, z, 60, 0, False)
+    verdict(f"the parallel path's calls at {big[0]}x{big[1]}: HS tiles {hy + t_hs}x{wx + t_hs} "
+            f"and {big[0]}x{wx + t_hs} (their "
+            f"four and two masks, {t_hs} and {100 % t_hs} iterations), Liu-Shen stripes {hl + t}x{big[1]} and "
+            f"{hl + 2 * t}x{big[1]} ({t - 1} and 1 steps, stop=False); the timed "
+            f"{big[0]}x{big[1]} inputs, edges 0: HS 100 iterations, Liu-Shen 60 steps")
     return worst
 
 
@@ -1583,13 +1638,14 @@ def main() -> None:
 
         # ------------------------------------------------------------ 9
         phase("parallel")
-        masked = masked_parity(dev, rand)
         # the masked kernels' device time at 2048^2: every side an apron edge
-        # (an interior tile) beside the whole-image call
+        # (an interior tile) beside the whole-image call; masked_parity
+        # checks these inputs too
         fx, fy, ft = hs_derivatives(rand(PARALLEL_SHAPE, 0, 255), rand(PARALLEL_SHAPE, 0, 255))
         z = torch.zeros(PARALLEL_SHAPE, device=dev)
         a, b = rand(PARALLEL_SHAPE, 1, 255), rand(PARALLEL_SHAPE, 1, 255)
         fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
+        masked = masked_parity(dev, rand, (fx, fy, ft, z, fields))
         masked_ms = {
             "hs_jacobi 100 it, edges ALL": device_ms(
                 lambda: hs_iter.hs_iterate(fx, fy, ft, z, z, 1.0, 100), 20),

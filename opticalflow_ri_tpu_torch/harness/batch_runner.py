@@ -14,8 +14,9 @@ with prefetching, checkpoint and resume, failure isolation and profiling
     (from the second batch on);
   * ``mesh`` (a ("batch", 1, 1) mesh, ``parallel.make_mesh``) shards each
     batch over the ranks of a process group: every rank runs the runner on
-    the same pair list, decodes, computes (``parallel.batch_sharded_scan``)
-    and writes only its slice of each batch.  A batch fails on every rank
+    the same pair list, decodes, computes (``scan_pipeline``, which is what
+    ``parallel.batch_sharded_scan`` returns) and writes only its slice of
+    each batch.  A batch fails on every rank
     when a pair of it fails to load on any (one ``all_gather_object`` per
     batch); the ``done`` and ``failed`` sets are gathered at each
     checkpoint and rank 0 alone writes ``progress.json``, which a resume
@@ -138,12 +139,8 @@ class FlowBatchRunner:
         if meshed:
             import torch.distributed as dist
 
-            from opticalflow_ri_tpu_torch.parallel.batch_stream import batch_sharded_scan
-
-            fn = batch_sharded_scan(self.config_name, self.mesh)
             mine = {"done": [], "failed": []}  # this rank's names since the last gather
-        else:
-            fn = scan_pipeline(self.config_name)
+        fn = scan_pipeline(self.config_name)
         dev = self.device
         cuda = dev.type == "cuda"
         if cuda:

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from opticalflow_ri_tpu_torch.ops.cuda import build
-from opticalflow_ri_tpu_torch.ops.stencil import hs_avg3x3, hs_avg3x3_padded
+from opticalflow_ri_tpu_torch.ops.stencil import hs_avg3x3_padded
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
@@ -90,9 +90,8 @@ def pad1_edges(x: torch.Tensor, edges: int, mode: str) -> torch.Tensor:
 
 def hs_avg3x3_edges(x: torch.Tensor, edges: int) -> torch.Tensor:
     """``hs_avg3x3(x, "mirror")`` with the mirror only on the sides in
-    ``edges`` and zeros beyond the others, in the same operation order."""
-    if edges == ALL:
-        return hs_avg3x3(x, "mirror")
+    ``edges`` and zeros beyond the others, in the same operation order (with
+    ``ALL``, ``pad1_edges`` is ``pad2d(x, 1, "mirror")``)."""
     return hs_avg3x3_padded(pad1_edges(x, edges, "mirror"), x.shape[-2], x.shape[-1])
 
 

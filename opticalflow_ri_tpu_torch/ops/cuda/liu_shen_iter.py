@@ -118,11 +118,8 @@ def liu_shen_iteration(u, v, fields, h, edges: int = ALL):
     h = float(np.float32(h))
     oh, ow = u.shape[-2], u.shape[-1]
 
-    def nearest(z):
-        return pad2d(z, 1, "nearest") if edges == ALL else hs_iter.pad1_edges(z, edges, "nearest")
-
-    du1, du2, fu1, _, mu = ls_field_stencils(nearest(u), oh, ow)
-    dv1, dv2, _, fv2, mv = ls_field_stencils(nearest(v), oh, ow)
+    du1, du2, fu1, _, mu = ls_field_stencils(hs_iter.pad1_edges(u, edges, "nearest"), oh, ow)
+    dv1, dv2, _, fv2, mv = ls_field_stencils(hs_iter.pad1_edges(v, edges, "nearest"), oh, ow)
     ring_u = ls_ring_sum(pad2d(u, 1, "constant"), oh, ow)
     ring_v = ls_ring_sum(pad2d(v, 1, "constant"), oh, ow)
     bu = iix * (2.0 * du1 + dv2) + iiy * dv1 + ii * (fu1 + mv) + h * ring_u + ixt

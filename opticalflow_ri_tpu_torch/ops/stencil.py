@@ -19,49 +19,18 @@ TWELFTH = float(np.float32(1.0 / 12.0))
 
 def correlate3x3(x: torch.Tensor, k: np.ndarray, mode: str) -> torch.Tensor:
     """Correlate the trailing 2 dims of ``x`` with a static 3x3 kernel ``k``,
-    out(y,x) = sum_ij k[i,j]·in[y+i-1, x+j-1]; zero taps are skipped and the
-    others added in row-major order (``ops/stencil.py:31-48``)."""
-    k = np.asarray(k, dtype=np.float32)
-    if k.shape != (3, 3):
-        raise ValueError(f"correlate3x3 takes a 3x3 kernel, got {k.shape}")
-    xp = pad2d(x, 1, mode)
-    h, w = x.shape[-2], x.shape[-1]
-    out = None
-    for i in range(3):
-        for j in range(3):
-            wt = float(k[i, j])
-            if wt == 0.0:
-                continue
-            term = xp[..., i : i + h, j : j + w] * wt
-            out = term if out is None else out + term
-    return torch.zeros_like(x) if out is None else out
-
-
-def hs_avg3x3(x: torch.Tensor, mode: str = "mirror") -> torch.Tensor:
-    """Horn-Schunck neighbour average 1/12·[[1,2,1],[2,0,2],[1,2,1]] in the
-    separable form ([1,2,1]⊗[1,2,1] − 4·δ)/12 (``ops/stencil.py:51-66``)."""
-    xp = pad2d(x, 1, mode)
-    p = xp[..., :, :-2] + 2.0 * xp[..., :, 1:-1] + xp[..., :, 2:]
-    q = p[..., :-2, :] + 2.0 * p[..., 1:-1, :] + p[..., 2:, :]
-    return (q - 4.0 * x) * TWELFTH
-
-
-def hs_avg3x3_padded(xp: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """``hs_avg3x3`` on an array already padded by one cell (or more: the
-    first out_h + 2 rows and out_w + 2 columns are read), its halo supplied
-    by a neighbour exchange rather than a border rule
-    (``ops/stencil.py:69-76``)."""
-    p = xp[..., :, :out_w] + 2.0 * xp[..., :, 1 : out_w + 1] + xp[..., :, 2 : out_w + 2]
-    q = p[..., :out_h, :] + 2.0 * p[..., 1 : out_h + 1, :] + p[..., 2 : out_h + 2, :]
-    return (q - 4.0 * xp[..., 1 : out_h + 1, 1 : out_w + 1]) * TWELFTH
+    out(y,x) = sum_ij k[i,j]·in[y+i-1, x+j-1], the border by ``mode``
+    (``ops/stencil.py:31-48``)."""
+    return correlate3x3_padded(pad2d(x, 1, mode), k, x.shape[-2], x.shape[-1])
 
 
 def correlate3x3_padded(xp: torch.Tensor, k: np.ndarray, out_h: int, out_w: int) -> torch.Tensor:
-    """``correlate3x3`` on an array already padded by one cell, the taps in
-    the same order (``ops/stencil.py:79-96``)."""
+    """``correlate3x3`` on an array already padded by one cell, its halo a
+    border rule's or a neighbour exchange's; zero taps are skipped and the
+    others added in row-major order (``ops/stencil.py:79-96``)."""
     k = np.asarray(k, dtype=np.float32)
     if k.shape != (3, 3):
-        raise ValueError(f"correlate3x3_padded takes a 3x3 kernel, got {k.shape}")
+        raise ValueError(f"correlate3x3 takes a 3x3 kernel, got {k.shape}")
     out = None
     for i in range(3):
         for j in range(3):
@@ -71,6 +40,21 @@ def correlate3x3_padded(xp: torch.Tensor, k: np.ndarray, out_h: int, out_w: int)
             term = xp[..., i : i + out_h, j : j + out_w] * wt
             out = term if out is None else out + term
     return torch.zeros_like(xp[..., :out_h, :out_w]) if out is None else out
+
+
+def hs_avg3x3(x: torch.Tensor, mode: str = "mirror") -> torch.Tensor:
+    """Horn-Schunck neighbour average 1/12·[[1,2,1],[2,0,2],[1,2,1]], the
+    border by ``mode`` (``ops/stencil.py:51-66``)."""
+    return hs_avg3x3_padded(pad2d(x, 1, mode), x.shape[-2], x.shape[-1])
+
+
+def hs_avg3x3_padded(xp: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``hs_avg3x3`` on an array already padded by one cell (or more: the
+    first out_h + 2 rows and out_w + 2 columns are read), in the separable
+    form ([1,2,1]⊗[1,2,1] − 4·δ)/12 (``ops/stencil.py:69-76``)."""
+    p = xp[..., :, :out_w] + 2.0 * xp[..., :, 1 : out_w + 1] + xp[..., :, 2 : out_w + 2]
+    q = p[..., :out_h, :] + 2.0 * p[..., 1 : out_h + 1, :] + p[..., 2 : out_h + 2, :]
+    return (q - 4.0 * xp[..., 1 : out_h + 1, 1 : out_w + 1]) * TWELFTH
 
 
 def hs_derivatives(im1: torch.Tensor, im2: torch.Tensor):

@@ -19,10 +19,7 @@ construct (harness/batch_runner.py).
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 from opticalflow_ri_tpu_torch.parallel.distributed import local_slices
-from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
 
 
 def batch_spec() -> tuple:
@@ -40,22 +37,13 @@ def batch_sharding(mesh):
     return take
 
 
-@lru_cache(maxsize=None)
-def batch_sharded_scan(name: str, mesh, _force_sharded: bool = False):
-    """(im1s, im2s) -> (us, vs) over this rank's (K/N, H, W) slices: the
-    rank scans the full kernel pipeline over its slice, with no collective.
-
-    A 1-way batch axis returns ``scan_pipeline(name)`` itself: the
-    decomposition is the identity there (``_force_sharded=True`` returns the
-    per-rank wrapper anyway, for measurement)."""
+def batch_sharded_scan(name: str, mesh):
+    """(im1s, im2s) -> (us, vs) over this rank's (K/N, H, W) slices
+    (``batch_sharding(mesh)``): ``compile.scan_pipeline(name)`` itself, on
+    any mesh.  In JAX the function takes the global stack and a shard_map
+    over ``mesh`` splits it; here each rank holds its own slice and the
+    batch axis needs no collective, so the single-device scan is the whole
+    per-rank program (JAX's 1-way shortcut, on every batch axis)."""
     from opticalflow_ri_tpu_torch.compile import scan_pipeline
 
-    scan = scan_pipeline(name)
-    if axis_size(mesh, "batch") == 1 and not _force_sharded:
-        return scan
-
-    def local_scan(im1s, im2s, device="cuda"):
-        return scan(im1s, im2s, device)
-
-    local_scan.release = scan.release
-    return local_scan
+    return scan_pipeline(name)

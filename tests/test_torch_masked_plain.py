@@ -16,7 +16,7 @@ import torch
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
 from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
-from opticalflow_ri_tpu_torch.ops.stencil import hs_avg3x3_padded, hs_derivatives
+from opticalflow_ri_tpu_torch.ops.stencil import hs_avg3x3, hs_derivatives
 
 ALL = hs_iter.ALL
 MASKS = list(range(16))
@@ -43,17 +43,17 @@ def test_pad1_edges_zero_beyond_apron_sides(edges):
 
 
 def test_hs_masked_formulation_at_all_edges_equals_todays():
-    """The masked average (explicit per-side pad, then the padded stencil)
-    with every bit set equals today's mirror average bit for bit."""
+    """The masked average (the per-side pad, then the padded stencil) with
+    every bit set equals the unmasked mirror average, ``hs_avg3x3``, bit for
+    bit."""
     rng = np.random.default_rng(2)
     fx, fy, ft = hs_derivatives(_rand(rng, (33, 41), 0, 255), _rand(rng, (33, 41), 0, 255))
     u0, v0 = _rand(rng, (33, 41), -2, 2), _rand(rng, (33, 41), -2, 2)
-    want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, 7)
+    got = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, 7, ALL)
     saved = hs_iter.hs_avg3x3_edges
     try:
-        hs_iter.hs_avg3x3_edges = lambda x, e: hs_avg3x3_padded(
-            hs_iter.pad1_edges(x, e, "mirror"), x.shape[-2], x.shape[-1])
-        got = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, 7, ALL)
+        hs_iter.hs_avg3x3_edges = lambda x, e: hs_avg3x3(x, "mirror")
+        want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, 7)
     finally:
         hs_iter.hs_avg3x3_edges = saved
     for g, w in zip(got, want):
@@ -61,18 +61,19 @@ def test_hs_masked_formulation_at_all_edges_equals_todays():
 
 
 def test_ls_masked_formulation_at_all_edges_equals_todays():
+    """The Liu-Shen step with every bit set equals the step on the unmasked
+    nearest pad, ``pad2d(z, 1, "nearest")``, bit for bit."""
     rng = np.random.default_rng(3)
     a, b = _rand(rng, (21, 30), 1, 255), _rand(rng, (21, 30), 1, 255)
     fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
     u, v = _rand(rng, (21, 30), -0.5, 0.5), _rand(rng, (21, 30), -0.5, 0.5)
-    want = liu_shen_iter.liu_shen_iteration(u, v, fields, 10.0)
-    saved = liu_shen_iter.pad2d
-    try:  # route the ALL case through the masked pad as well
-        liu_shen_iter.pad2d = lambda z, n, mode: (hs_iter.pad1_edges(z, 15, mode)
-                                                  if mode == "nearest" else saved(z, n, mode))
-        got = liu_shen_iter.liu_shen_iteration(u, v, fields, 10.0, ALL)
+    got = liu_shen_iter.liu_shen_iteration(u, v, fields, 10.0, ALL)
+    saved = hs_iter.pad1_edges
+    try:
+        hs_iter.pad1_edges = lambda z, e, mode: pad2d(z, 1, mode)
+        want = liu_shen_iter.liu_shen_iteration(u, v, fields, 10.0)
     finally:
-        liu_shen_iter.pad2d = saved
+        hs_iter.pad1_edges = saved
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
