@@ -79,7 +79,13 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
   9. parallel — the multi-GPU layer (``opticalflow_ri_tpu_torch.parallel``):
                K1 and K4/K5 with all 16 per-side ``edges`` masks against their
                plain versions at 47x61 and 333x517, bit for bit, and at the
-               shapes, masks and step counts the ranks give them; then two
+               shapes, masks and step counts the ranks give them; K6 on a
+               stripe's slab, K7 in global rows, K9 in stripe mode with each
+               apron and K12 under the four y masks (both windows), bit for
+               bit on stripes of 47x61 and 333x517 and on the ranks' own
+               512x2048 stripes (``sharded_mode_parity``), and their device
+               ms on an interior stripe beside the whole-image calls
+               (``stripe_mode_ms``); then two
                groups of ranks spawned as ``chip_smoke.py --parallel-rank``
                (the kernels built once, here, before): one NCCL rank, and
                four gloo ranks sharing the one GPU (halos staged through
@@ -87,15 +93,18 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                ``particle_image_pair(seed=0)``, the kernel-sharded HS solve
                ((1, 2, 2) mesh), the rows-sharded Liu-Shen solve ((1, 4, 1),
                60 steps), ``batched_hs_pipeline`` ((2, 1, 2), two pairs) and
-               ``auto_sharded_pipeline("HS_Fs3_4")`` ((1, 2, 2)); rank 0
+               ``auto_sharded_pipeline("HS_Fs3_4")`` ((1, 2, 2)), and the
+               rows-sharded dense LK (``lk_solve_sharded_kernel``) and
+               Farneback (``farneback_solve_sharded``) on (1, 4, 1), their
+               launch and exchange counts zeroed just before each; rank 0
                gathers the tiles and holds them against the single-device
                port bit for bit (err to 1e-6 relative).  The four ranks also
                run ``batch_sharded_scan`` ((4, 1, 1), 16 pairs at 512^2,
                bit for bit against ``scan_pipeline``) and the runner with
                the mesh on the campaign's pairs (its ``done``/``failed`` and
                every ``.mat`` equal to the single-device runner's).  Rank 0
-               times one sharded HS_Fs3_4 and one Liu-Shen solve beside the
-               eager single-device calls, with the halo exchanges, kernel
+               times one sharded HS_Fs3_4, Liu-Shen, LK and FB solve beside
+               the eager single-device calls, with the halo exchanges, kernel
                launches and host err reads per solve; the four-rank times
                share one GPU and are no scaling figure.  A failed rank stops
                the group and fails the phase.
@@ -405,6 +414,190 @@ def masked_parity(dev, rand, timed) -> dict:
     return worst
 
 
+def sharded_mode_parity(dev, rand, fb_expansions) -> dict:
+    """K6, K7, K9 and K12 in the sharded modes the rows-sharded LK and
+    Farneback solves give them, against their plain versions on the card,
+    bit for bit: stripes of 47x61 and 333x517 at the top, inside and at the
+    bottom of an image three stripes deep, and the four ranks' own 512-row
+    stripes of the 2048^2 inputs the parallel phase's ranks solve.  K6 on
+    the stripe's slab (cut from the image padded by lk_pad rows, as the
+    exchange gives it) and K7 in global rows (row0, img_h; at 0, 1 and 5
+    steps, some pixels bailing at the image's bottom); K9 in stripe mode
+    with each apron combination (none, R above, R below, both), calibrated
+    and wild flows; K12 under the four y masks for the Gaussian and the box
+    window.  Returns the largest difference per kernel (0 when bit for bit)."""
+    import torch
+
+    from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec
+    from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs_padded, lk_pad
+    from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow as fb_blur
+    from opticalflow_ri_tpu_torch.ops.cuda import lk_build, lk_iter, tent_sample
+    from opticalflow_ri_tpu_torch.ops.cuda.hs_iter import BOTTOM, TOP
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
+    from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
+
+    R, HW, pad = 5, 13, lk_pad(5)
+    worst = dict.fromkeys(("lk_build", "lk_gn", "fb_update_matrices", "fb_blur5_flow"), 0.0)
+    bad = []
+    windows = {"gaussian": _window_blur_spec(33, True), "box": _window_blur_spec(33, False)}
+
+    def check(name, label, got, want):
+        d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        worst[name] = max(worst[name], d)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            bad.append((name, label, d))
+
+    def cases(img_h, h):
+        """(row0, a_top, a_bot) of an image's stripes of h rows: R-row
+        aprons on the interior sides; the whole image as one stripe too."""
+        out = [(row0, R if row0 else 0, R if row0 + h < img_h else 0)
+               for row0 in range(0, img_h, h)]
+        return out + [(0, 0, 0)] if img_h > h else out
+
+    def lk_stripes(a, b, h, flows):
+        """K6 and K7 on each h-row stripe of the (img_h, w) pair a, b."""
+        img_h, w = a.shape
+        ap, bp = (pad2d(x, pad, "nearest") for x in (a, b))
+        for row0 in range(0, img_h, h):
+            rows = slice(row0, row0 + h + 2 * pad)
+            for k, (fname, (u0, v0), steps) in enumerate(flows):
+                slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs_padded(
+                    ap[rows], bp[rows], u0[row0 : row0 + h], v0[row0 : row0 + h], HW,
+                    (0, 0, 0, 0), R, row0)
+                label = f"{h}x{w} stripe at row {row0} of {img_h}, {fname}"
+                if k == 0:  # the planes do not depend on the flow
+                    t = lk_build.lk_build_planes(slab, g_pair, HW, R, runs_y, runs_x)
+                    check("lk_build", label, t,
+                          lk_build.lk_build_planes_plain(slab, g_pair, HW, R, runs_y, runs_x))
+                for n in steps:
+                    check("lk_gn", f"{label}, {n} steps",
+                          lk_iter.lk_gn_iterate(*t, *fields, n, R, HW, row0=row0, img_h=img_h,
+                                                img_w=w),
+                          lk_iter.lk_gn_iterate_plain(*t, *fields, n, R, HW, row0=row0,
+                                                      img_h=img_h, img_w=w))
+                del slab, g_pair, fields
+            del t
+            torch.cuda.empty_cache()
+
+    def fb_stripes(r0, r1, h, flows):
+        """K9 with each apron and K12 under each mask on the h-row stripes of
+        the (5, img_h, w) expansions."""
+        img_h = r0.shape[1]
+        for fname, (fx, fy) in flows:
+            m_all = tent_sample.update_matrices_plain(fx, fy, r0, r1)
+            for row0, a_top, a_bot in cases(img_h, h):
+                hh = img_h if (row0, a_top, a_bot) == (0, 0, 0) else h
+                rows = slice(row0, row0 + hh)
+                label = f"{hh}x{r0.shape[2]} stripe at row {row0} of {img_h}, {fname}"
+                args = (fx[rows], fy[rows], r0[:, rows].contiguous(),
+                        r1[:, row0 - a_top : row0 + hh + a_bot].contiguous(), R)
+                kw = dict(row0=row0, img_rows=img_h, apron=(a_top, a_bot))
+                check("fb_update_matrices", f"{label}, apron {(a_top, a_bot)}",
+                      [tent_sample.update_matrices(*args, **kw)],
+                      [tent_sample.update_matrices_plain(*args, **kw)])
+                for wname, (taps, mode, scale) in windows.items():
+                    half = len(taps) // 2
+                    edges = (TOP if row0 == 0 else 0) | (BOTTOM if row0 + hh == img_h else 0)
+                    lo, hi = row0 - (0 if edges & TOP else half), \
+                        row0 + hh + (0 if edges & BOTTOM else half)
+                    m = m_all[:, lo:hi].contiguous()
+                    check("fb_blur5_flow", f"{label}, {wname}, edges {edges}",
+                          fb_blur.blur5_flow(m, taps, mode, scale, edges),
+                          fb_blur.blur5_flow_plain(m, taps, mode, scale, edges))
+            del m_all
+            torch.cuda.empty_cache()
+
+    def verdict(what):
+        torch.cuda.synchronize()
+        print(f"sharded modes, {what}: max|d| {worst} (bar: bitwise) failures {bad or 'none'}",
+              flush=True)
+        if bad:
+            raise AssertionError(f"sharded kernel modes disagree with their plain versions: {bad}")
+
+    for h, w in [(47, 61), (333, 517)]:
+        img = (3 * h, w)
+        a = rand(img, 0, 255)
+        b = torch.roll(a, (1, 2), (0, 1)) + rand(img, -2, 2)
+        v_bail = rand(img, -4, 4)
+        v_bail[-8:, ::3] = 14.5  # origins at or past the image's bottom: they bail
+        lk_stripes(a, b, h, [("calibrated |d|<=4", (rand(img, -4, 4), rand(img, -4, 4)),
+                              (0, 1, 5)),
+                             ("bottom bails", (rand(img, -4, 4), v_bail), (1, 5))])
+        r0, r1 = fb_expansions(img)
+        fb_stripes(r0, r1, h, [("calibrated |d|<=4", (rand(img, -4, 4), rand(img, -4, 4))),
+                               ("wild |d|<=20", (rand(img, -20, 20), rand(img, -20, 20)))])
+        verdict(f"stripes of {h}x{w} in a {img[0]}-row image")
+        del a, b, r0, r1
+
+    # the ranks' own stripes: the parallel phase's 2048^2 pair, zero flow
+    big, hl = PARALLEL_SHAPE, PARALLEL_SHAPE[0] // 4
+    a, b = (torch.as_tensor(im, device=dev)
+            for im in particle_image_pair(shape=big, seed=0)[:2])
+    z = torch.zeros(big, device=dev)
+    lk_stripes(a, b, hl, [("zero flow (the ranks' call)", (z, z), (5,))])
+    del a, b
+    r0, r1 = fb_expansions(big)
+    fb_stripes(r0, r1, hl, [("zero flow", (z, z)),
+                            ("calibrated |d|<=4", (rand(big, -4, 4), rand(big, -4, 4)))])
+    del r0, r1, z
+    torch.cuda.empty_cache()
+    verdict(f"the ranks' {hl}x{big[1]} stripes of {big[0]}x{big[1]}")
+    return worst
+
+
+def stripe_mode_ms(dev, rand, fb_expansions, device_ms) -> dict:
+    """The device ms (graph replay) of K7, K9 and K12 in their sharded modes on
+    an interior 512 x 2048 stripe of the 2048^2 image (row0 512, the
+    neighbours' rows on both sides), each beside the whole-image call on the
+    same rows: K7 on a random |d| <= 4 flow (5 steps), K9 on a calibrated
+    flow, K12 with the 33-tap Gaussian."""
+    import torch
+
+    from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec
+    from opticalflow_ri_tpu_torch.models.lucas_kanade import (
+        lk_kernel_inputs, lk_kernel_inputs_padded, lk_pad,
+    )
+    from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow as fb_blur
+    from opticalflow_ri_tpu_torch.ops.cuda import lk_build, lk_iter, tent_sample
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
+
+    img_h, w = PARALLEL_SHAPE
+    hl, R, pad = img_h // 4, 5, lk_pad(5)
+    shape = (hl, w)
+    a = rand(shape, 0, 255)
+    b = torch.roll(a, (1, 2), (0, 1)) + rand(shape, -2, 2)
+    u0, v0 = rand(shape, -4, 4), rand(shape, -4, 4)
+    slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(a, b, u0, v0)
+    t = lk_build.lk_build_planes(slab, g_pair, 13, R, runs_y, runs_x)
+    stripe = lk_kernel_inputs_padded(pad2d(a, pad, "nearest"), pad2d(b, pad, "nearest"), u0, v0,
+                                     13, (0, 0, 0, 0), R, hl)[2]
+    out = {"lk_gn random, stripe row0 512": device_ms(
+               lambda: lk_iter.lk_gn_iterate(*t, *stripe, 5, R, 13, row0=hl, img_h=img_h,
+                                             img_w=w), 20),
+           "lk_gn random, whole": device_ms(lambda: lk_iter.lk_gn_iterate(*t, *fields, 5, R, 13),
+                                            20)}
+    del slab, g_pair, fields, stripe, t
+    r0, r1 = fb_expansions((hl + 2 * R, w))
+    fx, fy = rand(shape, -4, 4), rand(shape, -4, 4)
+    r0 = r0[:, R : R + hl].contiguous()
+    out["fb_update_matrices, stripe apron (5, 5)"] = device_ms(
+        lambda: tent_sample.update_matrices(fx, fy, r0, r1, R, row0=hl, img_rows=img_h,
+                                            apron=(R, R)), 50)
+    r1w = r1[:, R : R + hl].contiguous()
+    out["fb_update_matrices, whole"] = device_ms(
+        lambda: tent_sample.update_matrices(fx, fy, r0, r1w, R), 50)
+    taps, mode, scale = _window_blur_spec(33, True)
+    half = len(taps) // 2
+    m = tent_sample.update_matrices_plain(*(rand((hl + 2 * half, w), -4, 4) for _ in range(2)),
+                                          *fb_expansions((hl + 2 * half, w)))
+    mw = m[:, half : half + hl].contiguous()
+    out["fb_blur5_flow gaussian 33, interior mask"] = device_ms(
+        lambda: fb_blur.blur5_flow(m, taps, mode, scale, 0), 50)
+    out["fb_blur5_flow gaussian 33, whole"] = device_ms(
+        lambda: fb_blur.blur5_flow(mw, taps, mode, scale), 50)
+    return out
+
+
 def rank_main(argv) -> None:
     """One rank of a group spawned by the parallel phase: ``chip_smoke.py
     --parallel-rank R WORLD BACKEND INIT WORK``.  Runs the sharded entry
@@ -417,13 +610,18 @@ def rank_main(argv) -> None:
     sys.path.insert(0, ROOT)
     from opticalflow_ri_tpu_torch.compile import scan_pipeline
     from opticalflow_ri_tpu_torch.configs import run_config
+    from opticalflow_ri_tpu_torch.models.farneback import farneback_solve
     from opticalflow_ri_tpu_torch.models.horn_schunck import hs_solve
     from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
-    from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter
+    from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_dense_solve
+    from opticalflow_ri_tpu_torch.ops.cuda import (
+        blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample,
+    )
     from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter_px
     from opticalflow_ri_tpu_torch.parallel import (
         batch_sharded_scan, batch_sharding, batched_hs_pipeline, distributed, exchange_halo,
-        hs_solve_sharded, liu_shen_solve_sharded, make_mesh,
+        farneback_solve_sharded, hs_solve_sharded, liu_shen_solve_sharded,
+        lk_solve_sharded_kernel, make_mesh,
     )
     from opticalflow_ri_tpu_torch.parallel.auto import auto_sharded_pipeline
     from opticalflow_ri_tpu_torch.parallel.sharded_kernel import liu_shen_solve_sharded_kernel
@@ -542,6 +740,53 @@ def rank_main(argv) -> None:
               {"bitwise": same((u, v), ref), "max_abs_diff": d, "aee": e,
                "mesh": list(m_hs.shape), **used})
 
+    # rows-sharded dense LK and Farneback on ("y", None) stripes: the
+    # launch and exchange counts set to 0 just before each solve, read just
+    # after (this slice's path)
+    rows = ("y", None)
+    m_rows = mesh((1, 4, 1))
+    sl = distributed.local_slices(m_rows, shape, rows)
+    row_tiles = [t[sl].contiguous() for t in (pair[0], pair[1], zero, zero)]
+    path_wrappers = {"lk_build": lk_build.lk_build_planes, "lk_gn": lk_iter.lk_gn_iterate,
+                     "fb_update_matrices": tent_sample.update_matrices,
+                     "fb_blur5_flow": blur5_flow.blur5_flow}
+
+    def on_zeroed_counts(call):
+        for wrapper in path_wrappers.values():
+            wrapper.launches = 0
+        exchange_halo.exchanges = 0
+        out = call()
+        return out, {"halo_exchanges": exchange_halo.exchanges,
+                     **{f"{k}_launches": f.launches for k, f in path_wrappers.items()}}
+
+    def max_diff(got, want):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    lk_call = lambda: lk_solve_sharded_kernel(m_rows, *row_tiles)  # noqa: E731
+    fb_call = lambda: farneback_solve_sharded(m_rows, *row_tiles)  # noqa: E731
+    got, lk_used = on_zeroed_counts(lk_call)
+    got = [distributed.gather_global(m_rows, t, rows) for t in got]
+    if lead:
+        ref = lk_dense_solve(*pair, zero, zero)
+        check("lk_solve_sharded_kernel, half window 13, 5 steps, R 5, against lk_dense_solve",
+              same(got, ref) and lk_used["lk_build_launches"] > 0
+              and lk_used["lk_gn_launches"] > 0,
+              {"bitwise": same(got, ref), "max_abs_diff": max_diff(got, ref),
+               "mesh": list(m_rows.shape), **lk_used})
+        del ref
+    got, fb_used = on_zeroed_counts(fb_call)
+    got = [distributed.gather_global(m_rows, t, rows) for t in got]
+    if lead:
+        ref = farneback_solve(*pair, zero, zero)
+        check("farneback_solve_sharded, window 33 Gaussian, 5 iterations, against "
+              "farneback_solve", same(got, ref) and fb_used["fb_update_matrices_launches"] > 0
+              and fb_used["fb_blur5_flow_launches"] > 0,
+              {"bitwise": same(got, ref), "max_abs_diff": max_diff(got, ref),
+               "mesh": list(m_rows.shape), **fb_used})
+        del ref
+    del got
+    torch.cuda.empty_cache()
+
     # times: CUDA events, and the host's time in the call (the card idle
     # before it); every rank in step, or rank 0 alone
     def timed(call, reps=5, together=True):
@@ -597,25 +842,42 @@ def rank_main(argv) -> None:
     liu_shen_solve_sharded(m_ls, *ls_tiles[:2], 10.0, ls_tiles[2], ls_tiles[2], max_iter=60,
                            tol=0.0)
     ls_used = per_call(before)
+    t_lk = timed(lk_call)
+    t_fb = timed(fb_call)
     torch.distributed.barrier()
     if lead:
         from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_solve
 
         t_hs1 = timed(lambda: run_config("HS_Fs3_4", *pair), together=False)
         t_ls1 = timed(lambda: liu_shen_solve(*pair, 10.0, zero, zero, 60, 0.0), together=False)
+        t_lk1 = timed(lambda: lk_dense_solve(*pair, zero, zero), together=False)
+        t_fb1 = timed(lambda: farneback_solve(*pair, zero, zero), together=False)
         device = {}
         if one:
             device = {"sharded_hs_fs3_4_graph_device_ms": graph_ms(lambda: fn(*tiles)),
                       "eager_hs_fs3_4_graph_device_ms": graph_ms(
-                          lambda: run_config("HS_Fs3_4", *pair))}
-        report({"times": "HS_Fs3_4 and the Liu-Shen solve (h 10, 60 steps, tol 0) at "
+                          lambda: run_config("HS_Fs3_4", *pair)),
+                      "sharded_lk_graph_device_ms": graph_ms(lk_call),
+                      "eager_lk_graph_device_ms": graph_ms(
+                          lambda: lk_dense_solve(*pair, zero, zero)),
+                      "sharded_fb_graph_device_ms": graph_ms(fb_call),
+                      "eager_fb_graph_device_ms": graph_ms(
+                          lambda: farneback_solve(*pair, zero, zero))}
+        report({"times": "HS_Fs3_4, the Liu-Shen solve (h 10, 60 steps, tol 0), dense LK "
+                         "(half window 13, 5 steps) and Farneback (window 33, 5 iterations) at "
                          f"{shape[0]}x{shape[1]}, CUDA-event ms on rank 0, host ms in the call",
                 "sharded_hs_fs3_4_ms": t_hs[0], "sharded_hs_fs3_4_host_ms": t_hs[1],
                 "eager_hs_fs3_4_ms": t_hs1[0], "eager_hs_fs3_4_host_ms": t_hs1[1],
                 "sharded_liu_shen_ms": t_ls[0], "sharded_liu_shen_host_ms": t_ls[1],
-                "eager_liu_shen_ms": t_ls1[0], "eager_liu_shen_host_ms": t_ls1[1], **device,
+                "eager_liu_shen_ms": t_ls1[0], "eager_liu_shen_host_ms": t_ls1[1],
+                "sharded_lk_ms": t_lk[0], "sharded_lk_host_ms": t_lk[1],
+                "eager_lk_ms": t_lk1[0], "eager_lk_host_ms": t_lk1[1],
+                "sharded_fb_ms": t_fb[0], "sharded_fb_host_ms": t_fb[1],
+                "eager_fb_ms": t_fb1[0], "eager_fb_host_ms": t_fb1[1], **device,
                 "hs_per_solve": hs_used, "liu_shen_per_solve": ls_used,
-                "meshes": {"hs": list(m_hs.shape), "liu_shen": list(m_ls.shape)},
+                "lk_per_solve": lk_used, "fb_per_solve": fb_used,
+                "meshes": {"hs": list(m_hs.shape), "liu_shen": list(m_ls.shape),
+                           "lk_fb": list(m_rows.shape)},
                 "note": ("one rank: the sharded schedule on one GPU" if one else
                          "four ranks share one H100: not a scaling figure")})
     torch.distributed.barrier()
@@ -1646,6 +1908,7 @@ def main() -> None:
         a, b = rand(PARALLEL_SHAPE, 1, 255), rand(PARALLEL_SHAPE, 1, 255)
         fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
         masked = masked_parity(dev, rand, (fx, fy, ft, z, fields))
+        sharded_err = sharded_mode_parity(dev, rand, fb_expansions)
         masked_ms = {
             "hs_jacobi 100 it, edges ALL": device_ms(
                 lambda: hs_iter.hs_iterate(fx, fy, ft, z, z, 1.0, 100), 20),
@@ -1660,13 +1923,28 @@ def main() -> None:
                           "gpu": gpu}), flush=True)
         del fx, fy, ft, z, a, b, fields
         torch.cuda.empty_cache()
+        print(json.dumps({"stripe_device_ms": stripe_mode_ms(dev, rand, fb_expansions, device_ms),
+                          "gpu": gpu}), flush=True)
         with open(os.path.join(work, "pairs.json"), "w") as f:
             json.dump(pairs, f)
         t0 = time.perf_counter()
-        run_group(1, "nccl", work)
+        nccl_lines = run_group(1, "nccl", work)
         t1 = time.perf_counter()
         lines = run_group(4, "gloo", work)
         t2 = time.perf_counter()
+        # K6, K7, K9 and K12 launched by the sharded LK and FB solves on rank
+        # 0 (the counts zeroed just before each), summed over the two, in
+        # both groups
+        sharded_launches = {name: {} for name in sharded_err}
+        for group, glines in (("nccl_1_rank", nccl_lines), ("gloo_4_ranks", lines)):
+            for rec in (json.loads(line) for line in glines if line.startswith("{")):
+                if rec.get("check", "").startswith(("lk_solve_sharded_kernel",
+                                                    "farneback_solve_sharded")):
+                    for name, per in sharded_launches.items():
+                        per[group] = per.get(group, 0) + rec[f"{name}_launches"]
+        if any(len(per) != 2 or min(per.values()) < 1 for per in sharded_launches.values()):
+            raise AssertionError(f"a sharded-mode kernel was not launched by the sharded LK and "
+                                 f"FB solves of both groups: {sharded_launches}")
         runner = [json.loads(line) for line in lines if '"runner"' in line]
         if not runner:
             raise AssertionError("the four-rank group reported no runner result")
@@ -1684,6 +1962,8 @@ def main() -> None:
         print(f"mesh runner: done {len(rec['done'])} and failed {rec['failed']} equal the "
               f"single-device runner's; every .mat bit for bit")
         print(json.dumps({"parallel": "groups", "masked_max_abs_diff": masked,
+                          "sharded_mode_max_abs_diff": sharded_err,
+                          "sharded_launches": sharded_launches,
                           "nccl_1_rank_s": t1 - t0, "gloo_4_ranks_s": t2 - t1, "gpu": gpu}),
               flush=True)
     finally:
@@ -1726,6 +2006,9 @@ def main() -> None:
             kern["unfused_device_ms"] = unfused_device[(512, 512)]
         if (name, (512, 512)) in library_device_times:
             kern["library_device_ms"] = library_device_times[(name, (512, 512))]
+        if name in sharded_err:  # the rows-sharded LK and FB solves' modes
+            kern["sharded_max_abs_err"] = sharded_err[name]
+            kern["sharded_launches"] = sharded_launches[name]
         kernels.append(kern)
     for kern in kernels:
         if kern["launches"] < 1:

@@ -17,9 +17,19 @@ namespace ofri_fb {
 // R >= 0: the dense tent contraction over shifts [-R, R]^2 with the
 // displacement clipped to [-R, hi], hi = float32(R - 1e-3); R < 0: the exact
 // 4-tap gather (sample_max_shift=None).
+//
+// The stripe mode (K9-K11's sharded mode, R >= 0 only): the (h, w) field
+// covers global rows [row0, row0 + h) of an img_h-row image, and R1 holds
+// a_top rows above it and a_bot below (a neighbour's rows on a side inside
+// the image, none on the image's border).  The sample's row index is clamped
+// into the rows present, [-a_top, h - 1 + a_bot], which on a border side is
+// the edge padding of the whole-image call; the inside test and the border
+// ramp take global rows.  row0 = 0, img_h = h, a_top = a_bot = 0 is the
+// whole image, bit for bit (the fused loop, fb_fused.cu, always runs it).
 struct UmParams {
   int h, w, R;
   float hi;
+  int row0, img_h, a_top, a_bot;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
@@ -33,19 +43,22 @@ __device__ __forceinline__ float ramp_at(int d) {
 // The five planes of M at pixel (x, y): the sample s of R1 at the displaced
 // position, the blend with R0, the border ramp and the normal-equation
 // products (ops/cuda/tent_sample.py: update_matrices_plain, assemble_m).
-// r0 and r1 hold five (h, w) planes each.
+// r0 holds five (h, w) planes, r1 five (a_top + h + a_bot, w) planes.
 __device__ __forceinline__ void update_matrices_pixel(const float* __restrict__ r0,
                                                       const float* __restrict__ r1,
                                                       float flowx, float flowy, int x, int y,
                                                       const UmParams& p, float m[5]) {
   const size_t plane = (size_t)p.h * p.w;
+  const size_t plane1 = (size_t)(p.a_top + p.h + p.a_bot) * p.w;
   const size_t i = (size_t)y * p.w + x;
+  const int yg = y + p.row0;  // the global row
   const float fx = (float)x + flowx;
-  const float fy = (float)y + flowy;
+  const float fy = (float)yg + flowy;
   const float x1 = floorf(fx);
   const float y1 = floorf(fy);
   // from the unclipped flow
-  const bool inside = x1 >= 0.0f && y1 >= 0.0f && x1 < (float)(p.w - 1) && y1 < (float)(p.h - 1);
+  const bool inside =
+      x1 >= 0.0f && y1 >= 0.0f && x1 < (float)(p.w - 1) && y1 < (float)(p.img_h - 1);
 
   float s[5];
   if (p.R >= 0) {
@@ -54,7 +67,7 @@ __device__ __forceinline__ void update_matrices_pixel(const float* __restrict__ 
     // non-zero (|dc - s| >= 1 rounds to >= 1), and the contraction adds the
     // others as exact zeros.  So the sum is these four terms in the dense
     // loop's order (sy outer, sx inner), from 0.  Edge padding of R1 is an
-    // index clamp.
+    // index clamp into the rows present.
     const float lo = (float)(-p.R);
     const float dxc = fminf(fmaxf(flowx, lo), p.hi);
     const float dyc = fminf(fmaxf(flowy, lo), p.hi);
@@ -68,12 +81,13 @@ __device__ __forceinline__ void update_matrices_pixel(const float* __restrict__ 
     const float w01 = wy0 * wx1;
     const float w10 = wy1 * wx0;
     const float w11 = wy1 * wx1;
-    const size_t ya = (size_t)clampi(y + (int)sy, 0, p.h - 1) * p.w;
-    const size_t yb = (size_t)clampi(y + (int)sy + 1, 0, p.h - 1) * p.w;
+    const int ylo = -p.a_top, yhi = p.h - 1 + p.a_bot;
+    const size_t ya = (size_t)(clampi(y + (int)sy, ylo, yhi) + p.a_top) * p.w;
+    const size_t yb = (size_t)(clampi(y + (int)sy + 1, ylo, yhi) + p.a_top) * p.w;
     const int xa = clampi(x + (int)sx, 0, p.w - 1);
     const int xb = clampi(x + (int)sx + 1, 0, p.w - 1);
     for (int c = 0; c < 5; ++c) {
-      const float* rc = r1 + c * plane;
+      const float* rc = r1 + c * plane1;
       float acc = 0.0f;
       acc = acc + w00 * rc[ya + xa];
       acc = acc + w01 * rc[ya + xb];
@@ -109,8 +123,8 @@ __device__ __forceinline__ void update_matrices_pixel(const float* __restrict__ 
   r2 = (r2 + r4 * flowy) + r6 * flowx;
   r3 = (r3 + r6 * flowy) + r5 * flowx;
 
-  const float scale = ((ramp_at(min(x, 5)) * ramp_at(min(y, 5))) * ramp_at(min(p.w - x - 1, 5))) *
-                      ramp_at(min(p.h - y - 1, 5));
+  const float scale = ((ramp_at(min(x, 5)) * ramp_at(min(yg, 5))) * ramp_at(min(p.w - x - 1, 5))) *
+                      ramp_at(min(p.img_h - yg - 1, 5));
   r2 = r2 * scale;
   r3 = r3 * scale;
   r4 = r4 * scale;

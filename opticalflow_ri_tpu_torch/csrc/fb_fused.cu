@@ -140,7 +140,7 @@ fb_fused_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int y0 = (t / tiles_x) * Tile::kTH;
       const int x0 = (t % tiles_x) * Tile::kTW;
-      Tile::blur(m_a, h, w, y0, x0, spec, tables, smem, [](const float* q) { return *q; });
+      Tile::blur(m_a, h, w, 0, 0, y0, x0, spec, tables, smem, [](const float* q) { return *q; });
       Tile::solve(smem, spec.n, h, w, y0, x0, [&](int x, int y, size_t i, float u, float v) {
         if (last) {
           fx[i] = u;
@@ -208,7 +208,7 @@ extern "C" int ofri_fb_fused(const float* r0, const float* r1, const float* fx0,
   const int tiles = ((w + Tile::kTW - 1) / Tile::kTW) * ((h + Tile::kTH - 1) / Tile::kTH);
   const int resident = per_sm[device][n] * sms[device];
   const int blocks = tiles < resident ? tiles : resident;
-  UmParams p{h, w, R, hi};
+  UmParams p{h, w, R, hi, 0, h, 0, 0};  // the whole image
   void* args[] = {(void*)&r0, (void*)&r1,  (void*)&fx0, (void*)&fy0,     (void*)&fx,  (void*)&fy,
                   (void*)&m_a, (void*)&m_b, (void*)&p,   (void*)&n_iters, (void*)&spec};
   err = cudaLaunchCooperativeKernel((const void*)fb_fused_kernel, dim3(blocks),

@@ -20,6 +20,11 @@
 //     conflict-free by the odd stride.  The border rule is a table of source
 //     rows and columns per tile (reflect-101 for "mirror", replicate for
 //     "nearest"; equal to the padded plain version for any pad width).
+//   * The y apron (K12's sharded mode): M may hold a_top rows above the
+//     tile's field and a_bot below, a neighbour's rows on a side inside the
+//     image (a_top = a_bot = 0: the whole image).  The y rule then runs over
+//     the rows present, so a side with an apron reads it and a side without
+//     keeps the border rule.
 //   * One group barrier between the passes, one block barrier after the
 //     x-pass; the solve reads the five blurred planes from shared memory.
 // Shared memory at TW = 64: 104 KB at 33 taps, 165 KB at 129.
@@ -100,14 +105,16 @@ struct BlurTile {
 
   // Blur the five (h, w) planes of m over the tile at (y0, x0): y-pass,
   // x-pass and post-scale, into the blurred planes in `smem` (smem_bytes(n)
-  // of dynamic shared memory).  All kThreads threads call it; load(p) reads
-  // the M value at p.  It starts with the tile's border tables and a block
-  // barrier, so every earlier use of the shared memory by the block is done,
-  // and ends with a block barrier, after which solve() may read the tile.
+  // of dynamic shared memory).  m's planes hold a_top + h + a_bot rows, the
+  // field's h after a_top rows of apron.  All kThreads threads call it;
+  // load(p) reads the M value at p.  It starts with the tile's border tables
+  // and a block barrier, so every earlier use of the shared memory by the
+  // block is done, and ends with a block barrier, after which solve() may
+  // read the tile.
   template <class Load>
-  __device__ __forceinline__ static void blur(const float* m, int h, int w, int y0, int x0,
-                                              const BlurSpec& spec, Tables& t, float* smem,
-                                              Load load) {
+  __device__ __forceinline__ static void blur(const float* m, int h, int w, int a_top, int a_bot,
+                                              int y0, int x0, const BlurSpec& spec, Tables& t,
+                                              float* smem, Load load) {
     const int n = spec.n;
     const int half = n / 2;
     const int span = kTW + n - 1;  // columns of the y-pass
@@ -115,10 +122,11 @@ struct BlurTile {
     float* mid = smem;                    // 5 x kTH x stride: after the y-pass
     float* out = mid + 5 * kTH * stride;  // 5 x kTH x kBlurStride: the blurred planes
     const int tid = threadIdx.x;
-    const size_t plane = (size_t)h * w;
+    const int present = a_top + h + a_bot;  // the rows of m
+    const size_t plane = (size_t)present * w;
 
     for (int i = tid; i < kTH + n - 1; i += kThreads)
-      t.src_row[i] = border_index(y0 - half + i, h, spec.mode);
+      t.src_row[i] = border_index(y0 - half + i + a_top, present, spec.mode);
     for (int i = tid; i < span; i += kThreads)
       t.src_col[i] = border_index(x0 - half + i, w, spec.mode);
     __syncthreads();

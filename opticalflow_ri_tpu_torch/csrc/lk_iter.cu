@@ -71,8 +71,22 @@
 //
 // Built with -fmad=false, both equal their plain PyTorch versions
 // (ops/cuda/lk_iter.py: lk_gn_iterate_plain, lk_fused_plain) bit for bit.
-// The TPU kernel's stripe arguments (row0, img_h) serve the VMEM-sized
-// stripe staging of large images, which has no counterpart on the card.
+//
+// Global rows (lk_gn_kernel only).  As the TPU kernel's row0, img_h and
+// img_w (ops/pallas/lk_iter.py:48-80), the (h, w) stack may cover global
+// rows [row0, row0 + h) of an img_h x img_w image: a rank's stripe of a
+// rows-sharded solve (parallel/sharded_kernel.py:lk_solve_sharded_kernel).
+// The pixel's row ii is then the global row y + row0 (exact in float32),
+// the out-of-bounds bail tests px >= img_w and py >= img_h, and the
+// displacement v = py + hw - ii uses the global ii, so px, py stay in
+// global window-origin coordinates.  With row0 = 0, img_h = h and img_w = w
+// it is the whole-image kernel, bit for bit.  The loop's code is the same
+// for both: its bail tests GnParams' h and w, which a stripe's launch
+// (lk_gn_kernel<true>) sets to the image's, the stripe's own extent and
+// row0 entering only before the loop.  With the stripe's bounds in the loop
+// itself nvcc scheduled it otherwise, and the random-flow input took 2.8x
+// as long at 2048^2 (PERF.md §6, K7).  The fused kernel always runs the
+// whole image.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -91,6 +105,13 @@ struct GnParams {
   int h, w, n_iter, R;
   float hw;  // the half window, as the float the bail and u, v use
   float hi;  // float32(R - 1e-3), the upper clamp
+};
+
+// A stripe (lk_gn_kernel<true>): the image row of its first row and its own
+// rows and columns.  GnParams' h and w then hold the image's, which the
+// bail tests.
+struct GnStripe {
+  int row0, rows, cols;
 };
 
 // The loop state of one pixel.
@@ -205,6 +226,9 @@ struct GlobalPlanes {
   }
 };
 
+// kStripe: the stack is the stripe s of the p.h x p.w image; else the whole
+// image (the file's comment, "Global rows").  The loop is the same code.
+template <bool kStripe>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
 lk_gn_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
              const float* __restrict__ ia11, const float* __restrict__ ia12,
@@ -212,16 +236,19 @@ lk_gn_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
              const float* __restrict__ c2, const float* __restrict__ act0,
              const float* __restrict__ px0, const float* __restrict__ py0,
              float* __restrict__ px_out, float* __restrict__ py_out,
-             float* __restrict__ status_out, GnParams p) {
+             float* __restrict__ status_out, GnParams p, GnStripe s) {
+  const int rows = kStripe ? s.rows : p.h;  // the stack's
+  const int cols = kStripe ? s.cols : p.w;
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const bool in = x < p.w && y < p.h;
-  const size_t i = (size_t)y * p.w + x;
+  const bool in = x < cols && y < rows;
+  const size_t i = (size_t)y * cols + x;
   // A thread outside the image runs an idle pixel instead of returning: of
   // the equivalent forms measured, this one runs fastest (PERF.md §6, K7).
-  GnPixel q = in ? gn_pixel(ia11, ia12, ia22, c1, c2, act0, px0, py0, i, (int)i, x, y)
+  GnPixel q = in ? gn_pixel(ia11, ia12, ia22, c1, c2, act0, px0, py0, i, (int)i, x,
+                           kStripe ? y + s.row0 : y)
                  : gn_idle();
-  gn_loop(GlobalPlanes{t1, t2, (size_t)p.h * p.w}, p, q);
+  gn_loop(GlobalPlanes{t1, t2, (size_t)rows * cols}, p, q);
   if (in) {
     px_out[i] = q.px;
     py_out[i] = q.py;
@@ -469,21 +496,30 @@ bool bases_match(const Runs& runs) {
 // The GN loop: t1, t2 ((2R+1)^2, h, w) shift planes, ia11..c2 the solve
 // fields, act0 the non-singular mask as 0/1, px0/py0 the window origins, all
 // row-major float32 on `device`; writes px, py, status (h, w).  `hi` is the
-// float32 rounding of R - 1e-3.  One launch on `stream`; returns
-// cudaGetLastError().
+// float32 rounding of R - 1e-3.  The stack covers global rows [row0, row0 +
+// h) of an img_h x img_w image (row0 = 0, img_h = h, img_w = w: the whole
+// image).  One launch on `stream`; returns cudaGetLastError().
 extern "C" int ofri_lk_gn(const float* t1, const float* t2, const float* ia11, const float* ia12,
                           const float* ia22, const float* c1, const float* c2, const float* act0,
                           const float* px0, const float* py0, float* px_out, float* py_out,
                           float* status_out, int h, int w, int n_iter, int R, int hw, float hi,
-                          int device, cudaStream_t stream) {
+                          int row0, int img_h, int img_w, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (h < 1 || w < 1 || n_iter < 0 || R < 0) return cudaErrorInvalidValue;
+  if (h < 1 || w < 1 || n_iter < 0 || R < 0 || row0 < 0 || img_h < row0 + h || img_w < 1)
+    return cudaErrorInvalidValue;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
-  lk_gn_kernel<<<grid, block, 0, stream>>>(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
-                                           px_out, py_out, status_out,
-                                           make_params(h, w, n_iter, R, hw, hi));
+  const GnStripe s{row0, h, w};
+  if (row0 == 0 && img_h == h && img_w == w)
+    lk_gn_kernel<false><<<grid, block, 0, stream>>>(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0,
+                                                    py0, px_out, py_out, status_out,
+                                                    make_params(h, w, n_iter, R, hw, hi), s);
+  else
+    lk_gn_kernel<true><<<grid, block, 0, stream>>>(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0,
+                                                   py0, px_out, py_out, status_out,
+                                                   make_params(img_h, img_w, n_iter, R, hw, hi),
+                                                   s);
   return cudaGetLastError();
 }
 

@@ -24,9 +24,10 @@ computes the same expansion to 6.7e-6.  The whole iteration loop in one
 launch is ``ops/cuda/fb_fused.py:fb_fused``, which the solve does not call,
 as in the JAX package.
 
-Not ported yet: the kernel-sharded branch of the adapter
+The rows-sharded solve is ``parallel/sharded_kernel.py:farneback_solve_sharded``.
+Not ported yet: the adapter's kernel-sharded branch
 (``models/farneback.py:575-600``, ``parallel/context.py``); it comes with
-a later multi-GPU slice (ROADMAP.md Queue 1, item 4.2).
+auto route 2 (ROADMAP.md Queue 1, items 4-5).
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, tent_sample
 from opticalflow_ri_tpu_torch.ops.cuda.blur5_flow import update_flow  # noqa: F401
 from opticalflow_ri_tpu_torch.ops.cuda.tent_sample import BORDER_RAMP, assemble_m  # noqa: F401
 from opticalflow_ri_tpu_torch.ops.kernels_bitexact import get_gaussian_kernel_bit_exact
+from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.resize import pil_resize
-from opticalflow_ri_tpu_torch.ops.stencil import correlate1d
+from opticalflow_ri_tpu_torch.ops.stencil import correlate1d, correlate1d_padded
 
 
 @lru_cache(maxsize=None)
@@ -78,10 +80,18 @@ def prepare_poly_gaussian(n: int, sigma: float):
 def poly_expansion(src: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     """(H, W) -> (5, H, W) polynomial-expansion field: the nine correlations
     and five combinations of the JAX package's "vpu" chain, in its order."""
+    return poly_expansion_padded(pad2d(src, ((n, n), (0, 0)), "nearest"), n, sigma)
+
+
+def poly_expansion_padded(srcp: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """``poly_expansion`` of the (H, W) image that ``srcp`` holds with n more
+    rows above and below it: the replicate rule's, or a neighbour's (a
+    rows-sharded stripe's halo, ``parallel/sharded_kernel.py``)."""
     g, xg, xxg, (ig11, ig03, ig33, ig55) = prepare_poly_gaussian(n, float(sigma))
-    ve = correlate1d(src, g, axis=-2, mode="nearest")
-    vo = correlate1d(src, xg, axis=-2, mode="nearest")
-    vx2 = correlate1d(src, xxg, axis=-2, mode="nearest")
+    rows = srcp.shape[-2] - 2 * n
+    ve = correlate1d_padded(srcp, g, -2, rows)
+    vo = correlate1d_padded(srcp, xg, -2, rows)
+    vx2 = correlate1d_padded(srcp, xxg, -2, rows)
 
     b1 = correlate1d(ve, g, axis=-1, mode="nearest")
     b2 = correlate1d(ve, xg, axis=-1, mode="nearest")
@@ -107,8 +117,15 @@ def _blur_kernel(n: int, sigma: float) -> np.ndarray:
 
 def gaussian_blur(src, smooth_size: int, sigma: float):
     """Separable bit-exact Gaussian, reflect-101 border (``mode="mirror"``)."""
+    half = smooth_size // 2
+    return gaussian_blur_padded(pad2d(src, ((half, half), (0, 0)), "mirror"), smooth_size, sigma)
+
+
+def gaussian_blur_padded(srcp, smooth_size: int, sigma: float):
+    """``gaussian_blur`` of the image that ``srcp`` holds with smooth_size // 2
+    more rows above and below it (the mirror rule's, or a neighbour's)."""
     k = _blur_kernel(smooth_size, float(sigma))
-    out = correlate1d(src, k, axis=-2, mode="mirror")
+    out = correlate1d_padded(srcp, k, -2, srcp.shape[-2] - 2 * (smooth_size // 2))
     return correlate1d(out, k, axis=-1, mode="mirror")
 
 

@@ -25,9 +25,10 @@ src/pyrlkDenseLargeW.cl:304-669):
 The JAX ``impl`` values ``"xla"``, ``"pallas_build"``, ``"pallas_xlabuild"``
 and ``"pallas_striped"`` choose TPU VMEM layouts and raise here.
 
-Not ported yet: the kernel-sharded branch of the adapter
+The rows-sharded solve is ``parallel/sharded_kernel.py:lk_solve_sharded_kernel``.
+Not ported yet: the adapter's kernel-sharded branch
 (``models/lucas_kanade.py:502-525``, ``parallel/context.py``); it comes with
-a later multi-GPU slice (ROADMAP.md Queue 1, item 4.2).
+auto route 2 (ROADMAP.md Queue 1, items 4-5).
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def lk_solve_fields(ipad, jpad, hw: int, R: int, runs_y, runs_x, h: int, w: int)
     structure tensor, the constant window sums and the non-singular mask
     (``models/lucas_kanade.py:153-207``).  All returned tensors are
     contiguous."""
-    pad = hw + (_GRID - hw) + R + 1
+    pad = lk_pad(R)
 
     def grads(p):
         gx = 3.0 * (p[:-2, 2:] + p[2:, 2:] - p[:-2, :-2] - p[2:, :-2]) + 10.0 * (
@@ -210,9 +211,11 @@ def _window_runs(half_window: int, asym):
     return wx, wy, runs_from_mask(wx), runs_from_mask(wy)
 
 
-def _pixel_grid(h: int, w: int, device):
+def pixel_grid(h: int, w: int, device, row0: int = 0):
+    """The columns and rows of an (h, w) field as float32, the rows global
+    from ``row0`` (a rows-sharded stripe's first)."""
     jj = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
-    ii = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    ii = torch.arange(row0, row0 + h, dtype=torch.float32, device=device)[:, None].expand(h, w)
     return jj, ii
 
 
@@ -222,15 +225,31 @@ def lk_kernel_inputs(im1, im2, u0, v0, half_window: int = 13, asym=(0, 0, 0, 0),
     (slab, g_pair, fields, runs_y, runs_x), with fields = (ia11, ia12, ia22,
     c1, c2, act0, px0, py0) — the solve fields, the non-singular mask as 0/1
     and the initial window origins, all (h, w) float32 and contiguous."""
-    im1 = im1.to(torch.float32)
-    im2 = im2.to(torch.float32)
-    h, w = im1.shape
+    pad = lk_pad(max_shift)
+    return lk_kernel_inputs_padded(*(pad2d(im.to(torch.float32), pad, "nearest")
+                                     for im in (im1, im2)),
+                                   u0, v0, half_window, asym, max_shift)
+
+
+def lk_pad(max_shift: int) -> int:
+    """Rows and columns the LK solve fields need around the image on each
+    side: the window offsets span [-hw, 31 - hw], the shifts [-R, R], the
+    gradients 1 (hw + (32 - hw) + R + 1, the JAX package's ``_lk_halo``)."""
+    return _GRID + int(max_shift) + 1
+
+
+def lk_kernel_inputs_padded(ipad, jpad, u0, v0, half_window: int = 13, asym=(0, 0, 0, 0),
+                            max_shift: int = 5, row0: int = 0):
+    """``lk_kernel_inputs`` of the (h, w) pair that ``ipad``, ``jpad`` hold
+    with ``lk_pad(max_shift)`` more rows and columns on each side (the
+    replicate rule's, or a neighbour's: a rows-sharded stripe's halo, its
+    first row the image's ``row0``)."""
     hw, R = int(half_window), int(max_shift)
+    h, w = (n - 2 * lk_pad(R) for n in ipad.shape)
     _, _, runs_x, runs_y = _window_runs(hw, asym)
-    pad = hw + (_GRID - hw) + R + 1
     g_pair, slab, ia11, ia12, ia22, c1, c2, ok = lk_solve_fields(
-        pad2d(im1, pad, "nearest"), pad2d(im2, pad, "nearest"), hw, R, runs_y, runs_x, h, w)
-    jj, ii = _pixel_grid(h, w, im1.device)
+        ipad.to(torch.float32), jpad.to(torch.float32), hw, R, runs_y, runs_x, h, w)
+    jj, ii = pixel_grid(h, w, ipad.device, row0)
     px0 = (jj + u0.to(torch.float32) - hw).contiguous()
     py0 = (ii + v0.to(torch.float32) - hw).contiguous()
     fields = (ia11, ia12, ia22, c1, c2, ok.to(torch.float32), px0, py0)
@@ -262,13 +281,13 @@ def lk_dense_solve(im1, im2, u0, v0, half_window: int = 13, n_iter: int = 5,
         px, py, status = lk_iter.lk_gn_iterate(t1s, t2s, *fields, n_iter, R, hw)
 
     ok = fields[5] > 0
-    jj, ii = _pixel_grid(*ok.shape, ok.device)
+    jj, ii = pixel_grid(*ok.shape, ok.device)
     u = torch.where(ok, px + hw - jj, u0.to(torch.float32))
     v = torch.where(ok, py + hw - ii, v0.to(torch.float32))
     status = torch.where(ok, status, torch.zeros_like(status))
     if not calc_err:
         return u, v, status
-    pad = hw + (_GRID - hw) + R + 1
+    pad = lk_pad(R)
     err = _lk_error_map(pad2d(im1.to(torch.float32), pad, "nearest"),
                         pad2d(im2.to(torch.float32), pad, "nearest"), px, py, ok, hw, asym,
                         pad, *ok.shape)

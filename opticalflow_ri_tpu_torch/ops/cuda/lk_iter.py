@@ -22,6 +22,14 @@ the plain loop gives NaN where the kernel keeps an inactive pixel's origin).
 All return (px, py, status): the final window origins (the pixel minus the
 half window plus the flow) and the 0/1 status, (h, w) float32.  ``act0`` is
 the non-singular-window mask as 0/1 float32.
+
+``lk_gn_iterate`` and its plain version take the TPU kernel's stripe
+arguments ``row0``, ``img_h`` and ``img_w`` (``ops/pallas/lk_iter.py:
+155-166``): the stack covers global rows [row0, row0 + h) of an
+img_h x img_w image, as a rank's stripe does in the rows-sharded solve
+(``parallel/sharded_kernel.py:lk_solve_sharded_kernel``).  The pixel's row
+is then the global one, the out-of-bounds bail tests the image's extent,
+and px, py are global window origins.  The defaults are the whole image.
 """
 
 from __future__ import annotations
@@ -71,14 +79,29 @@ def fused_plan(R: int):
                      f"cluster of {FUSED_CLUSTER_SIZES[-1]} blocks")
 
 
+def gn_extent(h: int, w: int, row0: int, img_h: int | None, img_w: int | None) -> tuple:
+    """(row0, img_h, img_w) of a GN call on an (h, w) stack, the defaults
+    filled in (the whole image); raises where the stack does not lie inside
+    the image's rows."""
+    img_h = h if img_h is None else int(img_h)
+    img_w = w if img_w is None else int(img_w)
+    row0 = int(row0)
+    if row0 < 0 or row0 + h > img_h or img_w < 1:
+        raise ValueError(f"lk_gn: rows [{row0}, {row0 + h}) do not lie in an image of "
+                         f"{img_h} x {img_w}")
+    return row0, img_h, img_w
+
+
 def lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
-                        n_iter: int, R: int, hw: int):
+                        n_iter: int, R: int, hw: int, row0: int = 0,
+                        img_h: int | None = None, img_w: int | None = None):
     """``n_iter`` Gauss-Newton steps per pixel on the plane stacks."""
     nshift = 2 * R + 1
     h, w = ia11.shape
+    row0, img_h, img_w = gn_extent(h, w, row0, img_h, img_w)
     dev = ia11.device
     jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    ii = torch.arange(row0, row0 + h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
     t1f = t1.reshape(nshift * nshift, h * w)
     t2f = t2.reshape(nshift * nshift, h * w)
     lo, hi = float(-R), clip_hi(R)
@@ -89,7 +112,7 @@ def lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
     px, py, active = px0, py0, act0
     status = torch.ones((h, w), dtype=torch.float32, device=dev)
     for _ in range(int(n_iter)):
-        oob = ((px < -hw) | (px >= w) | (py < -hw) | (py >= h)).to(torch.float32)
+        oob = ((px < -hw) | (px >= img_w) | (py < -hw) | (py >= img_h)).to(torch.float32)
         status = status * (1.0 - active * oob)
         active = active * (1.0 - oob)
 
@@ -139,7 +162,7 @@ def _outputs(like):
 def _gn_entry():
     entry = build.load_library().ofri_lk_gn
     entry.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     entry.restype = ctypes.c_int
     return entry
 
@@ -155,20 +178,23 @@ def _fused_entry():
 
 
 def lk_gn_iterate(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
-                  n_iter: int, R: int, hw: int):
+                  n_iter: int, R: int, hw: int, row0: int = 0,
+                  img_h: int | None = None, img_w: int | None = None):
     """Run the LK Gauss-Newton loop; returns (px, py, status).
 
     CPU tensors run ``lk_gn_iterate_plain``; CUDA tensors launch the kernel,
     a thread a pixel, each to its first inactive step.  The inputs must keep
     the contract in the module's docstring (finite, no -0 origin); nothing
-    here checks it.
+    here checks it.  ``row0``, ``img_h``, ``img_w``: the stack's place in
+    the image (the module's docstring).
     """
     if ia11.device.type == "cpu":
         return lk_gn_iterate_plain(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
-                                   n_iter, R, hw)
+                                   n_iter, R, hw, row0, img_h, img_w)
     fields = (ia11, ia12, ia22, c1, c2, act0, px0, py0)
     build.check_fields("lk_gn_iterate", *fields)
     h, w = ia11.shape
+    row0, img_h, img_w = gn_extent(h, w, row0, img_h, img_w)
     dev = ia11.device
     nshift = 2 * R + 1
     build.check_tensor("lk_gn_iterate", t1, (nshift * nshift, h, w), dev)
@@ -179,7 +205,7 @@ def lk_gn_iterate(t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0,
     lk_gn_iterate.launches += 1
     rc = entry(t1.data_ptr(), t2.data_ptr(), *(f.data_ptr() for f in fields), px.data_ptr(),
                py.data_ptr(), status.data_ptr(), h, w, int(n_iter), int(R), int(hw),
-               clip_hi(R), dev.index or 0, stream)
+               clip_hi(R), row0, img_h, img_w, dev.index or 0, stream)
     build.check(rc, "lk_gn_iterate")
     return px, py, status
 

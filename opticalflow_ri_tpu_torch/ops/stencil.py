@@ -88,18 +88,31 @@ def correlate1d(x: torch.Tensor, kernel: np.ndarray, axis: int, mode: str) -> to
     axis = axis % x.ndim
     if axis < x.ndim - 2:
         raise ValueError(f"axis {axis} is not one of the trailing two dims")
-    size = x.shape[axis]
     last = axis == x.ndim - 1
     pw = ((0, 0), (centre, n - 1 - centre)) if last else ((centre, n - 1 - centre), (0, 0))
-    xp = pad2d(x, pw, mode)
+    return correlate1d_padded(pad2d(x, pw, mode), kernel, axis, x.shape[axis])
+
+
+def correlate1d_padded(xp: torch.Tensor, kernel: np.ndarray, axis: int, size: int) -> torch.Tensor:
+    """``correlate1d`` on an array already padded along ``axis`` by len//2
+    before and len - 1 - len//2 after (by the border rule, or by a
+    neighbour's rows: the sharded solvers' halo): the ``size`` outputs,
+    every non-zero tap added in order."""
+    kernel = np.asarray(kernel, dtype=np.float32)
+    axis = axis % xp.ndim
+    last = axis == xp.ndim - 1
     out = None
-    for j in range(n):
+    for j in range(kernel.shape[0]):
         w = float(kernel[j])
         if w == 0.0:
             continue
         term = (xp[..., :, j : j + size] if last else xp[..., j : j + size, :]) * w
         out = term if out is None else out + term
-    return torch.zeros_like(x) if out is None else out
+    if out is None:
+        shape = list(xp.shape)
+        shape[axis] = size
+        return xp.new_zeros(shape)
+    return out
 
 
 def separable_correlate(x: torch.Tensor, kernel: np.ndarray, mode: str) -> torch.Tensor:

@@ -14,9 +14,12 @@ rank's LOCAL tiles:
   * entry points: ``distributed.initialize`` (torchrun's environment) and
     ``make_mesh``.
 
-Not ported yet (ROADMAP.md, Queue 1, item 4): the LK and Farneback sharded
-solves, ``context.py`` and the adapters' sharded branches, and
-``auto_sharded_pipeline``'s GSPMD route.
+  * rows-sharded dense LK and Farneback on their kernels' sharded modes
+    (``lk_solve_sharded_kernel``, ``farneback_solve_sharded``).
+
+Not ported yet (ROADMAP.md, Queue 1, items 4-5): ``context.py`` and the
+adapters' sharded branches, and ``auto_sharded_pipeline``'s GSPMD route
+(with it, a sharded Farneback pyramid of more than one level).
 """
 
 from opticalflow_ri_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
@@ -26,6 +29,13 @@ from opticalflow_ri_tpu_torch.parallel.sharded import (
     hs_solve_sharded,
     liu_shen_solve_sharded,
 )
+from opticalflow_ri_tpu_torch.parallel.sharded_kernel import (
+    farneback_iterate_sharded,
+    farneback_solve_sharded,
+    fb_shard_supported,
+    lk_solve_sharded_kernel,
+    pick_lk_shard_stripe,
+)
 from opticalflow_ri_tpu_torch.parallel.batch_stream import (
     batch_sharded_scan,
     batch_sharding,
@@ -34,5 +44,7 @@ from opticalflow_ri_tpu_torch.parallel.batch_stream import (
 __all__ = [
     "make_mesh", "mesh_shape_for", "exchange_halo",
     "hs_solve_sharded", "liu_shen_solve_sharded", "batched_hs_pipeline",
+    "lk_solve_sharded_kernel", "pick_lk_shard_stripe",
+    "farneback_solve_sharded", "farneback_iterate_sharded", "fb_shard_supported",
     "batch_sharded_scan", "batch_sharding",
 ]

@@ -1,6 +1,7 @@
-"""Sharded Horn-Schunck and Liu-Shen solves on the Hopper kernels, one
-T-deep halo exchange per launch (port of the HS and Liu-Shen half of
-``parallel/sharded_pallas.py``).
+"""Sharded solves on the Hopper kernels (port of
+``parallel/sharded_pallas.py``): Horn-Schunck and Liu-Shen with one T-deep
+halo exchange per launch, and rows-sharded dense LK and Farneback (at the
+end of the module).
 
 Every rank runs the single-device kernel (``ops/cuda/hs_iter.py``,
 ``ops/cuda/liu_shen_iter.py``) on its tile, padded by T rows and columns of
@@ -41,8 +42,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter
+from opticalflow_ri_tpu_torch.models import farneback as fb
+from opticalflow_ri_tpu_torch.models import lucas_kanade as lk
+from opticalflow_ri_tpu_torch.ops.cuda import (
+    blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample,
+)
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
+from opticalflow_ri_tpu_torch.ops.resize import pil_resize
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3_padded
 from opticalflow_ri_tpu_torch.parallel import sharded as _sh
 from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, reduce_over
@@ -226,3 +232,180 @@ def liu_shen_solve_sharded_kernel(mesh, im1, im2, h_reg, u0, v0, max_iter=60, to
 
 
 liu_shen_solve_sharded_kernel.err_reads = 0
+
+
+# ---------------------------------------------------------------------------
+# Rows-sharded dense Lucas-Kanade and Farneback
+# ---------------------------------------------------------------------------
+#
+# Both decompose rows only, ("y", None): a rank holds a whole-width stripe,
+# ranks along x hold replicas.  The kernels' sharded modes carry the border
+# rule: on the image's border a kernel keeps its whole-image rule, on an
+# interior side it reads the neighbour's rows the caller exchanged.  Given
+# those rows every output pixel is the single-device one, so the sharded
+# u, v (and LK's status) equal the port's lk_dense_solve and farneback_solve
+# bit for bit.
+#
+# No fallback.  A stripe or level that the conditions refuse raises
+# ValueError: nothing gathers the image or runs single-device in its place.
+# (JAX falls back per level to its GSPMD XLA loop; the port has no
+# partitioner to fall back to.)  The conditions are JAX's geometric ones,
+# without its validated-kernel registry and TPU layout gates
+# (sharded_pallas.py:340-367, 543-570): the port's kernels take any shape.
+
+def pick_lk_shard_stripe(mesh, shape, half_window: int = 13,
+                         max_shift: int = 5) -> int | None:
+    """The stripe height of a rows-sharded LK solve of the global ``shape``
+    on ``mesh``: ``h // my``, or None where ``h`` does not split over the y
+    ranks or a stripe is thinner than its lk_pad(max_shift)-row apron (the
+    halo would reach past the neighbour).  JAX stages a stripe in
+    VMEM-sized pieces (``lk_striped_height``); the card needs no staging,
+    so a rank runs its stripe as one."""
+    my = axis_size(mesh, "y")
+    h = shape[-2]
+    if h % my:
+        return None
+    h_loc = h // my
+    if my > 1 and h_loc < lk.lk_pad(max_shift):
+        return None
+    return h_loc
+
+
+def lk_solve_sharded_kernel(mesh, im1, im2, u0, v0, half_window: int = 13, n_iter: int = 5,
+                            asym=(0, 0, 0, 0), max_shift: int = 5):
+    """Rows-sharded dense LK on K6 and K7: this rank's ("y", None) stripes
+    in, its (u, v, status) stripes out; the contract of
+    models.lucas_kanade.lk_dense_solve.  One "nearest" halo exchange per
+    image of lk_pad(max_shift) rows (38 at R = 5), edge padding in x (the
+    stripe is whole-width), then the solve fields, K6 on the stripe's slab
+    and K7 in global rows (``row0``, ``img_h``).  No collective per
+    iteration: every pixel's Gauss-Newton loop is independent."""
+    h_loc, w = im1.shape[-2], im1.shape[-1]
+    my = axis_size(mesh, "y")
+    if pick_lk_shard_stripe(mesh, (h_loc * my, w), half_window, max_shift) != h_loc:
+        raise ValueError(f"lk kernel-sharded path unsupported for local stripe ({h_loc}, {w}) "
+                         f"on y = {my}: a stripe needs {lk.lk_pad(max_shift)} rows")
+    hw, R = int(half_window), int(max_shift)
+    row0 = axis_index(mesh, "y") * h_loc
+    pad = lk.lk_pad(R)
+
+    def pad_full(z):
+        zy = exchange_halo(z.to(torch.float32), ((pad, pad), (0, 0)), "nearest", mesh)
+        return pad2d(zy, ((0, 0), (pad, pad)), "nearest")
+
+    u0, v0 = _sh._f32(u0, v0)
+    slab, g_pair, fields, runs_y, runs_x = lk.lk_kernel_inputs_padded(
+        pad_full(im1), pad_full(im2), u0, v0, hw, asym, R, row0)
+    t1, t2 = lk_build.lk_build_planes(slab, g_pair, hw, R, runs_y, runs_x)
+    px, py, status = lk_iter.lk_gn_iterate(t1, t2, *fields, n_iter, R, hw, row0=row0,
+                                           img_h=h_loc * my, img_w=w)
+    ok = fields[5] > 0
+    jj, ii = lk.pixel_grid(h_loc, w, ok.device, row0)
+    u = torch.where(ok, px + hw - jj, u0)
+    v = torch.where(ok, py + hw - ii, v0)
+    return u, v, torch.where(ok, status, torch.zeros_like(status))
+
+
+def fb_shard_supported(mesh, shape, window_size: int, R: int = 5) -> bool:
+    """Can the rows-sharded Farneback iteration run a level of the global
+    ``shape`` on ``mesh``?  JAX's conditions (``sharded_pallas.py:340``):
+    the rows split over the y ranks, and with more than one a stripe holds
+    the window blur's half + 1 rows and the sampler's R + 1."""
+    my = axis_size(mesh, "y")
+    h = shape[-2]
+    if h % my:
+        return False
+    return my == 1 or h // my >= max(window_size // 2 + 1, R + 1)
+
+
+_Y_EDGES = hs_iter.TOP | hs_iter.BOTTOM
+
+
+def farneback_iterate_sharded(mesh, r0, r1, fx, fy, window_size: int, use_gaussian: bool,
+                              n_iters: int, R: int = 5):
+    """One Farneback level's iteration loop on this rank's stripes: R0, R1
+    (5, h_loc, w), the flow (h_loc, w) in; the flow out.  R1's R-row apron
+    is exchanged once (iteration-invariant), M's half-row apron once an
+    iteration; K9 runs in stripe mode (global rows) and K12 with the y mask
+    (a side with an apron reads it).  The flow needs no exchange: K9 is
+    per-pixel.  The apron is exchanged in mode "constant" and dropped on
+    the image's border sides, where the kernels apply their own rule."""
+    h_loc, w = fx.shape[-2], fx.shape[-1]
+    my = axis_size(mesh, "y")
+    if not fb_shard_supported(mesh, (h_loc * my, w), window_size, R):
+        raise ValueError(f"fb kernel-sharded path unsupported for local stripe ({h_loc}, {w}) "
+                         f"on y = {my}, window {window_size}, R {R}")
+    taps, mode, scale = fb._window_blur_spec(window_size, use_gaussian)
+    half = len(taps) // 2
+    edges, apron = _border_sides(mesh, _Y_ONLY)
+    top, bot = apron[0], apron[1]
+    row0 = axis_index(mesh, "y") * h_loc
+    r0, r1, fx, fy = _sh._f32(r0, r1, fx, fy)
+    r1p = _pad_interior(r1, R, mesh, apron, _Y_ONLY)
+
+    def um(u, v):
+        return tent_sample.update_matrices(u, v, r0, r1p, R, row0=row0, img_rows=h_loc * my,
+                                           apron=(R if top else 0, R if bot else 0))
+
+    m = um(fx, fy)
+    for i in range(int(n_iters)):
+        fx, fy = blur5_flow.blur5_flow(_pad_interior(m, half, mesh, apron, _Y_ONLY), taps, mode,
+                                       scale, edges & _Y_EDGES)
+        if i < n_iters - 1:
+            m = um(fx, fy)
+    return fx, fy
+
+
+def _fb_expansion_local(im, lvl, h, w, poly_n, poly_sigma, mesh):
+    """The level's expansion of one image on this rank's stripe: the
+    bit-exact blur (smooth // 2 "mirror" rows exchanged, 1 at level 0), the
+    resize to the level (a whole-image op: a one-rank mesh only, or the
+    same size), then the expansion (poly_n "nearest" rows exchanged)."""
+    half = lvl["smooth"] // 2
+    b = fb.gaussian_blur_padded(exchange_halo(im, ((half, half), (0, 0)), "mirror", mesh),
+                                lvl["smooth"], lvl["sigma"])
+    b = pil_resize(b, (h, w), "bilinear")
+    return fb.poly_expansion_padded(exchange_halo(b, ((poly_n, poly_n), (0, 0)), "nearest",
+                                                  mesh), poly_n, poly_sigma).contiguous()
+
+
+def farneback_solve_sharded(mesh, im1, im2, u0, v0, window_size=33, n_iters=5, poly_n=7,
+                            poly_sigma=1.5, use_gaussian=True, pyr_scale=0.5, pyr_levels=1,
+                            sample_max_shift: int = 5):
+    """The Farneback pipeline on this rank's ("y", None) stripes; the
+    contract of models.farneback.farneback_solve.  Each level's glue (blur,
+    expansion) runs on the stripe with halo exchanges, its iteration loop in
+    ``farneback_iterate_sharded``.
+
+    A pyramid of more than one level needs a resize across stripes (auto
+    route 2's, ROADMAP.md Queue 1 item 5): on a mesh with y > 1 it raises
+    NotImplementedError.  Every FB config solves one internal level; a
+    one-rank mesh runs every level."""
+    h_loc, w = im1.shape[-2], im1.shape[-1]
+    my = axis_size(mesh, "y")
+    plan = fb._level_plan(h_loc * my, w, pyr_scale, pyr_levels - 1)
+    if my > 1 and len(plan) > 1:
+        raise NotImplementedError(
+            f"farneback_solve_sharded: {len(plan)} pyramid levels on y = {my} need the stripe "
+            "resize of auto route 2 (ROADMAP.md Queue 1, item 5)")
+    R = int(sample_max_shift)
+    # the glue's halos reach no further than the neighbour's stripe
+    if not fb_shard_supported(mesh, (h_loc * my, w), window_size, R) or (
+            my > 1 and (h_loc < poly_n or h_loc <= plan[0]["smooth"] // 2)):
+        raise ValueError(f"fb kernel-sharded path unsupported for local stripe ({h_loc}, {w}) "
+                         f"on y = {my}: window {window_size}, R {R}, poly_n {poly_n}")
+    im1, im2, u0, v0 = _sh._f32(im1, im2, u0, v0)
+    prev = None
+    for lvl in plan:
+        h, w_l = (lvl["height"], lvl["width"]) if my == 1 else (h_loc, w)
+        if prev is None:
+            f = float(np.float32(lvl["scale"]))
+            fx, fy = (pil_resize(z, (h, w_l), "bilinear") * f for z in (u0, v0))
+        else:
+            f = float(np.float32(1.0 / pyr_scale))
+            fx, fy = (pil_resize(z, (h, w_l), "bilinear") * f for z in prev)
+        ra, rb = (_fb_expansion_local(im, lvl, h, w_l, poly_n, poly_sigma, mesh)
+                  for im in (im1, im2))
+        prev = farneback_iterate_sharded(mesh, ra, rb, fx.contiguous(), fy.contiguous(),
+                                         window_size, use_gaussian, n_iters, R)
+    return prev

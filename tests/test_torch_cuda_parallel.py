@@ -9,9 +9,12 @@ card with
 On one rank every side of the tile is the image's border, so the kernel
 paths run the single-device kernels on the whole image in T-iteration
 launches: their u, v equal the single-device port's bit for bit, and err
-agrees to 1e-6 relative.  (Four ranks on one card, over gloo with the halos
-staged through host memory, are driven by ``chip_smoke.py``'s parallel
-phase.)
+agrees to 1e-6 relative; the rows-sharded LK and Farneback equal
+``lk_dense_solve`` and ``farneback_solve`` bit for bit.  The sharded modes
+of K7 (global rows), K9 (stripe mode with each apron) and K12 (the four y
+masks) equal their plain versions on stripes bit for bit.  (Four ranks on
+one card, over gloo with the halos staged through host memory, are driven
+by ``chip_smoke.py``'s parallel phase.)
 """
 
 import numpy as np
@@ -19,9 +22,14 @@ import pytest
 import torch
 
 from opticalflow_ri_tpu_torch.configs import run_config
+from opticalflow_ri_tpu_torch.models import farneback as fb
+from opticalflow_ri_tpu_torch.models import lucas_kanade as lk
 from opticalflow_ri_tpu_torch.models.horn_schunck import hs_solve
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
-from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter
+from opticalflow_ri_tpu_torch.ops.cuda import (
+    blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample,
+)
+from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
 pytestmark = pytest.mark.cuda
@@ -103,3 +111,91 @@ def test_gather_global_on_one_nccl_rank(nccl_mesh, pair):
 
     g = distributed.gather_global(nccl_mesh, pair[0], ("y", "x"))
     assert torch.equal(g, pair[0])
+
+
+def test_lk_solve_sharded_kernel_on_one_nccl_rank(nccl_mesh, pair):
+    from opticalflow_ri_tpu_torch.parallel import lk_solve_sharded_kernel
+
+    z = torch.zeros_like(pair[0])
+    before = lk_build.lk_build_planes.launches, lk_iter.lk_gn_iterate.launches
+    got = lk_solve_sharded_kernel(nccl_mesh, *pair, z, z)
+    assert (lk_build.lk_build_planes.launches - before[0],
+            lk_iter.lk_gn_iterate.launches - before[1]) == (1, 1)
+    assert all(torch.equal(g, w) for g, w in zip(got, lk.lk_dense_solve(*pair, z, z)))
+
+
+@pytest.mark.parametrize("use_gaussian", [True, False], ids=["gaussian", "box"])
+def test_farneback_solve_sharded_on_one_nccl_rank(nccl_mesh, pair, use_gaussian):
+    from opticalflow_ri_tpu_torch.parallel import farneback_solve_sharded
+
+    z = torch.zeros_like(pair[0])
+    before = tent_sample.update_matrices.launches, blur5_flow.blur5_flow.launches
+    got = farneback_solve_sharded(nccl_mesh, *pair, z, z, use_gaussian=use_gaussian)
+    assert (tent_sample.update_matrices.launches - before[0],
+            blur5_flow.blur5_flow.launches - before[1]) == (5, 5)
+    want = fb.farneback_solve(*pair, z, z, use_gaussian=use_gaussian)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# (row0, rows) of the stripes of a 3 x 111-row image: top, interior, bottom
+STRIPES = [(0, 111), (111, 111), (222, 111)]
+
+
+@pytest.mark.parametrize("row0,rows", STRIPES, ids=["top", "interior", "bottom"])
+def test_lk_gn_global_rows_equal_plain(row0, rows):
+    """K7 in global rows on an LK stripe (slab and fields from the image
+    padded as the exchange pads it), some origins past the image's bottom."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    img = (3 * rows, 173)
+    rng = np.random.default_rng(row0)
+    a = rng.uniform(0, 255, img).astype(np.float32)
+    b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, img).astype(np.float32)
+    u0, v0 = (rng.uniform(-4, 4, img).astype(np.float32) for _ in range(2))
+    v0[-8:, ::3] = 14.5
+    pad = lk.lk_pad(5)
+    ap, bp = (pad2d(torch.tensor(x, device="cuda"), pad, "nearest")[row0 : row0 + rows + 2 * pad]
+              for x in (a, b))
+    flows = [torch.tensor(x[row0 : row0 + rows], device="cuda") for x in (u0, v0)]
+    slab, g_pair, fields, runs_y, runs_x = lk.lk_kernel_inputs_padded(ap, bp, *flows, 13,
+                                                                      (0, 0, 0, 0), 5, row0)
+    t = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
+    for n in (0, 1, 5):
+        got = lk_iter.lk_gn_iterate(*t, *fields, n, 5, 13, row0=row0, img_h=img[0], img_w=img[1])
+        want = lk_iter.lk_gn_iterate_plain(*t, *fields, n, 5, 13, row0=row0, img_h=img[0],
+                                           img_w=img[1])
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), n
+
+
+@pytest.mark.parametrize("row0,rows", STRIPES + [(0, 333)],
+                         ids=["top", "interior", "bottom", "whole"])
+def test_update_matrices_stripe_and_blur_masks_equal_plain(row0, rows):
+    """K9 in stripe mode (R-row aprons on the interior sides) and K12 under
+    the stripe's y mask, both windows, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    img_h, w, R = 333, 173, 5
+    im1, im2, _, _ = particle_image_pair(shape=(img_h, w), seed=3)
+    r0, r1 = (fb.poly_expansion(torch.tensor(im, device="cuda"), 7, 1.5).contiguous()
+              for im in (im1, im2))
+    rng = np.random.default_rng(rows + row0)
+    fx, fy = (torch.tensor(rng.uniform(-4, 4, (img_h, w)).astype(np.float32), device="cuda")
+              for _ in range(2))
+    a_top, a_bot = (R if row0 else 0), (R if row0 + rows < img_h else 0)
+    sl = slice(row0, row0 + rows)
+    args = (fx[sl], fy[sl], r0[:, sl].contiguous(),
+            r1[:, row0 - a_top : row0 + rows + a_bot].contiguous(), R)
+    kw = dict(row0=row0, img_rows=img_h, apron=(a_top, a_bot))
+    assert torch.equal(tent_sample.update_matrices(*args, **kw),
+                       tent_sample.update_matrices_plain(*args, **kw))
+    m = tent_sample.update_matrices(fx, fy, r0, r1)
+    edges = (hs_iter.TOP if row0 == 0 else 0) | (hs_iter.BOTTOM if row0 + rows == img_h else 0)
+    for use_gaussian in (True, False):
+        taps, mode, scale = fb._window_blur_spec(33, use_gaussian)
+        half = len(taps) // 2
+        lo = row0 - (0 if edges & hs_iter.TOP else half)
+        hi = row0 + rows + (0 if edges & hs_iter.BOTTOM else half)
+        mm = m[:, lo:hi].contiguous()
+        got = blur5_flow.blur5_flow(mm, taps, mode, scale, edges)
+        want = blur5_flow.blur5_flow_plain(mm, taps, mode, scale, edges)
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), use_gaussian
