@@ -106,8 +106,22 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                times one sharded HS_Fs3_4, Liu-Shen, LK and FB solve beside
                the eager single-device calls, with the halo exchanges, kernel
                launches and host err reads per solve; the four-rank times
-               share one GPU and are no scaling figure.  A failed rank stops
-               the group and fails the phase.
+               share one GPU and are no scaling figure.  Both groups also
+               run route 2, the sharded pyramid (``auto_sharded_pipeline``
+               of every configuration but the single-level HS ones, on
+               (1, 2, 2) tiles) at 512^2, and of one configuration a solver
+               at 2048^2 (``ROUTE2_AT_2048``), every kernel count zeroed
+               just before each run; rank 0 holds each against
+               ``run_config`` on the card (AEE <= 5e-6, bit for bit
+               named), checks that it launched exactly the configuration's
+               kernels, and prints its exchanges, gathers and launches and
+               its event and host ms beside the eager call's.  A failed
+               rank stops the group and fails the phase.  Before the
+               groups, K3's caller-padded mode is held against its plain
+               version and the whole-image kernel cropped, bit for bit,
+               under all 16 side combinations at 47x61, 333x517 and the
+               ranks' 1024^2 tiles of 2048^2 (``warp_padded_parity``), and
+               timed beside the whole-image call (``warp_padded_ms``).
 
 A configuration whose graph replay is not bit for bit the eager result is
 named with its difference and must stay within the whole-pipeline bar (AEE
@@ -282,6 +296,30 @@ def gn_exit(lk_iter, t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0, n_iter, R
     return px, py, status, steps
 
 
+def expected_kernels(name: str) -> set:
+    """The kernels a configuration's path launches, and no others.  The
+    LK and FB configurations run with warping=False: no warp.
+    LiuSE_LK_Fs2_0_* and LiuSE_FB_Fs0_0_* run Liu-Shen alone (the harness
+    quirk of configs.py)."""
+    if name == "lk_dense_solve_fused":
+        return {"lk_fused"}
+    if name == "fb_fused_solve":
+        return {"fb_fused"}
+    if name in LK_CONFIGS:
+        return {"lk_build", "lk_gn"} | ({"liu_shen"} if name.startswith("LiuSE_") else set())
+    if name in FB_CONFIGS:
+        return ({"fb_update_matrices", "fb_blur5_flow"}
+                | ({"liu_shen"} if name.startswith("LiuSE_") else set()))
+    want = set()
+    if not name.startswith("LiuSE_") or "HSchunck" in name:
+        want.add("hs_jacobi")
+    if name.startswith("LiuSE_"):
+        want.add("liu_shen")
+    if name.endswith("PyrLvls2"):
+        want.add("warp_pair")
+    return want
+
+
 def write_tiff(path: str, im: np.ndarray) -> None:
     """An (H, W) uint8 image as an uncompressed little-endian grayscale TIFF,
     one strip: what PIV cameras write and the native decoder reads."""
@@ -308,6 +346,12 @@ def to_np(t):
 
 
 PARALLEL_SHAPE = (2048, 2048)
+# route 2 at PARALLEL_SHAPE: one configuration a solver (HS, HS + Liu-Shen,
+# LK, FB); at 512^2 every route-2 configuration runs
+ROUTE2_KERNELS = ("hs_jacobi", "warp_pair", "liu_shen", "lk_build", "lk_gn", "fb_update_matrices",
+                  "fb_blur5_flow")
+ROUTE2_AT_2048 = ("HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", "LK_Fs2_0_PyrLvls2",
+                  "FB_Fs0_0_PyrLvls2")
 PARALLEL_TIMEOUT_S = 420   # one spawned group, start-up included
 
 
@@ -545,6 +589,86 @@ def sharded_mode_parity(dev, rand, fb_expansions) -> dict:
     return worst
 
 
+def warp_padded_parity(rand) -> float:
+    """K3 in its caller-padded mode (the sharded pyramid's warp) against its
+    plain version and against the whole-image kernel cropped to the tile,
+    bit for bit, under all 16 combinations of border and interior sides:
+    tiles of 47x61 and 333x517 images, and the (1, 2, 2) ranks' 1024^2
+    tiles of the 2048^2 image (an interior side at 1024 rows or columns; a
+    side pair that is all border spans the image), calibrated (|d| <= 4)
+    and wild (|d| <= 12, beyond R = 8) flows.  Each tile's images are cut
+    from the image padded by R cells in mode "nearest", as the exchange
+    gives them.  Returns the largest difference (0 when bit for bit)."""
+    import itertools
+
+    import torch
+
+    from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
+
+    a, worst, bad = 8, 0.0, []
+
+    def spans(n, lo_border, hi_border):
+        if n >= 2048:   # the ranks' halves, or the middle half
+            return {(True, True): (0, n), (True, False): (0, n // 2),
+                    (False, True): (n // 2, n), (False, False): (n // 4, 3 * n // 4)}[
+                        (lo_border, hi_border)]
+        return (0 if lo_border else n // 4, n if hi_border else n - n // 5)
+
+    for shape in [(47, 61), (333, 517), PARALLEL_SHAPE]:
+        h, w = shape
+        for fname, dmax in (("calibrated |d|<=4", 4.0), ("wild |d|<=12", 12.0)):
+            ims = [rand(shape, 0, 255) for _ in range(2)]
+            flows = [rand(shape, -dmax, dmax) for _ in range(4)]
+            whole = warp_tent.warp_pair(*ims, *flows)
+            padded = [pad2d(im, a, "nearest") for im in ims]
+            for top, bottom, left, right in itertools.product((True, False), repeat=4):
+                r0, r1 = spans(h, top, bottom)
+                c0, c1 = spans(w, left, right)
+                tiles = [p[r0:r1 + 2 * a, c0:c1 + 2 * a].contiguous() for p in padded]
+                cut = [f[r0:r1, c0:c1].contiguous() for f in flows]
+                tile = dict(apron=a, row0=r0, col0=c0, img_h=h, img_w=w)
+                got = warp_tent.warp_pair(*tiles, *cut, **tile)
+                plain = warp_tent.warp_pair_plain(*tiles, *cut, **tile)
+                for g, p, want in zip(got, plain, whole):
+                    d = max(float((g - p).abs().max()), float((g - want[r0:r1, c0:c1]).abs().max()))
+                    worst = max(worst, d)
+                    if not (torch.equal(g, p) and torch.equal(g, want[r0:r1, c0:c1])):
+                        bad.append((shape, fname, (top, bottom, left, right), d))
+            del ims, flows, whole, padded
+    torch.cuda.synchronize()
+    print(f"warp_pair caller-padded mode (apron {a}), 16 side combinations at 47x61, 333x517 "
+          f"and the ranks' 1024^2 tiles of {PARALLEL_SHAPE[0]}^2, calibrated and wild flows: "
+          f"max|d| {worst} against its plain version and the whole-image kernel cropped "
+          f"(bar: bitwise) failures {bad or 'none'}", flush=True)
+    if bad:
+        raise AssertionError(f"warp_pair's padded mode disagrees: {bad}")
+    return worst
+
+
+def warp_padded_ms(rand, device_ms) -> dict:
+    """K3's device ms (graph replay): the padded mode on an interior 1024^2
+    tile of the 2048^2 image (the neighbours' cells on every side) beside
+    the whole-image call on a 1024^2 image and on the 2048^2 one."""
+    from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
+
+    a, (h, w) = 8, PARALLEL_SHAPE
+    th, tw = h // 2, w // 2
+    ims = [rand(PARALLEL_SHAPE, 0, 255) for _ in range(2)]
+    flows = [rand(PARALLEL_SHAPE, -4, 4) for _ in range(4)]
+    r0, c0 = h // 4, w // 4
+    tiles = [pad2d(im, a, "nearest")[r0:r0 + th + 2 * a, c0:c0 + tw + 2 * a].contiguous()
+             for im in ims]
+    cut = [f[r0:r0 + th, c0:c0 + tw].contiguous() for f in flows]
+    tile = dict(apron=a, row0=r0, col0=c0, img_h=h, img_w=w)
+    small = [im[r0:r0 + th, c0:c0 + tw].contiguous() for im in ims]
+    return {f"padded, interior {th}x{tw} tile of {h}x{w}": device_ms(
+                lambda: warp_tent.warp_pair(*tiles, *cut, **tile), 50),
+            f"whole image {th}x{tw}": device_ms(lambda: warp_tent.warp_pair(*small, *cut), 50),
+            f"whole image {h}x{w}": device_ms(lambda: warp_tent.warp_pair(*ims, *flows), 50)}
+
+
 def stripe_mode_ms(dev, rand, fb_expansions, device_ms) -> dict:
     """The device ms (graph replay) of K7, K9 and K12 in their sharded modes on
     an interior 512 x 2048 stripe of the 2048^2 image (row0 512, the
@@ -609,21 +733,21 @@ def rank_main(argv) -> None:
     rank, world, backend, init, work = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
     sys.path.insert(0, ROOT)
     from opticalflow_ri_tpu_torch.compile import scan_pipeline
-    from opticalflow_ri_tpu_torch.configs import run_config
+    from opticalflow_ri_tpu_torch.configs import CONFIGS, run_config
     from opticalflow_ri_tpu_torch.models.farneback import farneback_solve
     from opticalflow_ri_tpu_torch.models.horn_schunck import hs_solve
     from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
     from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_dense_solve
     from opticalflow_ri_tpu_torch.ops.cuda import (
-        blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample,
+        blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
     )
     from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter_px
     from opticalflow_ri_tpu_torch.parallel import (
         batch_sharded_scan, batch_sharding, batched_hs_pipeline, distributed, exchange_halo,
-        farneback_solve_sharded, hs_solve_sharded, liu_shen_solve_sharded,
+        farneback_solve_sharded, gather_axis, hs_solve_sharded, liu_shen_solve_sharded,
         lk_solve_sharded_kernel, make_mesh,
     )
-    from opticalflow_ri_tpu_torch.parallel.auto import auto_sharded_pipeline
+    from opticalflow_ri_tpu_torch.parallel.auto import HS_SINGLE_LEVEL, auto_sharded_pipeline
     from opticalflow_ri_tpu_torch.parallel.sharded_kernel import liu_shen_solve_sharded_kernel
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -882,6 +1006,52 @@ def rank_main(argv) -> None:
                          "four ranks share one H100: not a scaling figure")})
     torch.distributed.barrier()
 
+    # route 2, the sharded pyramid (this slice's path): every configuration
+    # but the single-level HS ones at 512^2 and one a solver at 2048^2, on
+    # ("y", "x") tiles of (1, 2, 2), against run_config on the card; every
+    # kernel wrapper's count, the exchanges and the gathers set to 0 just
+    # before each run and read just after
+    route2_wrappers = {"hs_jacobi": hs_iter.hs_iterate, "warp_pair": warp_tent.warp_pair,
+                       "liu_shen": liu_shen_iter.liu_shen_iterate, **path_wrappers}
+
+    def route2_counts(call):
+        for wrapper in route2_wrappers.values():
+            wrapper.launches = 0
+        exchange_halo.exchanges = gather_axis.gathers = 0
+        out = call()
+        return out, {"halo_exchanges": exchange_halo.exchanges, "gathers": gather_axis.gathers,
+                     **{f"{k}_launches": f.launches for k, f in route2_wrappers.items()}}
+
+    m_r2 = mesh((1, 2, 2))
+    route2 = [n for n in CONFIGS if n not in HS_SINGLE_LEVEL]
+    pair512 = [torch.as_tensor(im, device=dev)
+               for im in particle_image_pair((512, 512), seed=0)[:2]]
+    for size, names, p2 in ((512, route2, pair512), (shape[0], ROUTE2_AT_2048, pair)):
+        sl = distributed.local_slices(m_r2, p2[0].shape, spec)
+        t2 = [im[sl].contiguous() for im in p2]
+        for name in names:
+            fn2 = auto_sharded_pipeline(name, m_r2, _force_sharded=one)
+            (u, v), used = route2_counts(lambda: fn2(*t2))
+            u, v = (distributed.gather_global(m_r2, t, spec) for t in (u, v))
+            t_r2 = timed(lambda: fn2(*t2), reps=3)
+            if lead:
+                ref = run_config(name, *p2)
+                t_1 = timed(lambda: run_config(name, *p2), reps=3, together=False)
+                e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
+                launched = {k for k in route2_wrappers if used[f"{k}_launches"] > 0}
+                check(f"auto_sharded_pipeline({name!r}) route 2 at {size}x{size} against "
+                      f"run_config", e <= AEE_BAR and launched == expected_kernels(name),
+                      {"route2": name, "size": size, "bitwise": same((u, v), ref), "aee": e,
+                       "max_abs_diff": max_diff((u, v), ref),
+                       "kernels": sorted(launched), "mesh": list(m_r2.shape),
+                       "route2_ms": t_r2[0], "route2_host_ms": t_r2[1], "eager_ms": t_1[0],
+                       "eager_host_ms": t_1[1], **used})
+                del ref
+            del u, v
+        del t2
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
     if not one:
         # the batch-sharded scan: 16 pairs at 512^2 over four ranks
         m_s = mesh((4, 1, 1))
@@ -978,8 +1148,9 @@ def main() -> None:
         FarnebackAdapter, GenericPyramidalOpticalFlowWrapper, HSOpticalFlowAlgoAdapter,
         LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow,
     )
-    from opticalflow_ri_tpu_torch.configs import run_config
+    from opticalflow_ri_tpu_torch.configs import CONFIGS, run_config
     from opticalflow_ri_tpu_torch.models import liu_shen as ls_model
+    from opticalflow_ri_tpu_torch.parallel.auto import HS_SINGLE_LEVEL
     from opticalflow_ri_tpu_torch.models.farneback import (
         _level_plan, _window_blur_spec, farneback_solve, gaussian_blur, poly_expansion,
     )
@@ -1364,28 +1535,7 @@ def main() -> None:
                 "fb_update_matrices": tent_sample.update_matrices,
                 "fb_blur5_flow": fb_blur.blur5_flow, "fb_fused": fb_fused.fb_fused}
 
-    def expected(name):
-        """The kernels a configuration's path launches, and no others.  The
-        LK and FB configurations run with warping=False: no warp.
-        LiuSE_LK_Fs2_0_* and LiuSE_FB_Fs0_0_* run Liu-Shen alone (the harness
-        quirk of configs.py)."""
-        if name == "lk_dense_solve_fused":
-            return {"lk_fused"}
-        if name == "fb_fused_solve":
-            return {"fb_fused"}
-        if name in LK_CONFIGS:
-            return {"lk_build", "lk_gn"} | ({"liu_shen"} if name.startswith("LiuSE_") else set())
-        if name in FB_CONFIGS:
-            return ({"fb_update_matrices", "fb_blur5_flow"}
-                    | ({"liu_shen"} if name.startswith("LiuSE_") else set()))
-        want = set()
-        if not name.startswith("LiuSE_") or "HSchunck" in name:
-            want.add("hs_jacobi")
-        if name.startswith("LiuSE_"):
-            want.add("liu_shen")
-        if name.endswith("PyrLvls2"):
-            want.add("warp_pair")
-        return want
+    expected = expected_kernels
 
     # each Liu-Shen call's k: the solver's handle on the kernel module is
     # swapped, for the main-path runs only, for one whose wrapper keeps k (a
@@ -1909,6 +2059,9 @@ def main() -> None:
         fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
         masked = masked_parity(dev, rand, (fx, fy, ft, z, fields))
         sharded_err = sharded_mode_parity(dev, rand, fb_expansions)
+        padded_warp_err = warp_padded_parity(rand)
+        print(json.dumps({"warp_pair_device_ms": warp_padded_ms(rand, device_ms), "gpu": gpu}),
+              flush=True)
         masked_ms = {
             "hs_jacobi 100 it, edges ALL": device_ms(
                 lambda: hs_iter.hs_iterate(fx, fy, ft, z, z, 1.0, 100), 20),
@@ -1945,6 +2098,24 @@ def main() -> None:
         if any(len(per) != 2 or min(per.values()) < 1 for per in sharded_launches.values()):
             raise AssertionError(f"a sharded-mode kernel was not launched by the sharded LK and "
                                  f"FB solves of both groups: {sharded_launches}")
+        # every kernel of route 2's path (K1, K3, K4/K5, K6, K7, K9, K12)
+        # launched by rank 0's route-2 runs (the counts zeroed just before
+        # each), summed over the configurations, in both groups
+        route2_launches = {name: {} for name in ROUTE2_KERNELS}
+        route2_runs = {}
+        for group, glines in (("nccl_1_rank", nccl_lines), ("gloo_4_ranks", lines)):
+            recs = [json.loads(line) for line in glines if line.startswith("{")]
+            recs = [r for r in recs if "route2" in r]
+            route2_runs[group] = len(recs)
+            for rec in recs:
+                for name, per in route2_launches.items():
+                    per[group] = per.get(group, 0) + rec[f"{name}_launches"]
+        want_runs = len(ROUTE2_AT_2048) + sum(1 for n in CONFIGS if n not in HS_SINGLE_LEVEL)
+        if any(n != want_runs for n in route2_runs.values()) or any(
+                len(per) != 2 or min(per.values()) < 1 for per in route2_launches.values()):
+            raise AssertionError(f"route 2 did not run every configuration, or a kernel of its "
+                                 f"path was not launched, in both groups: runs {route2_runs}, "
+                                 f"launches {route2_launches}")
         runner = [json.loads(line) for line in lines if '"runner"' in line]
         if not runner:
             raise AssertionError("the four-rank group reported no runner result")
@@ -1964,6 +2135,8 @@ def main() -> None:
         print(json.dumps({"parallel": "groups", "masked_max_abs_diff": masked,
                           "sharded_mode_max_abs_diff": sharded_err,
                           "sharded_launches": sharded_launches,
+                          "warp_padded_max_abs_diff": padded_warp_err,
+                          "route2_launches": route2_launches, "route2_runs": route2_runs,
                           "nccl_1_rank_s": t1 - t0, "gloo_4_ranks_s": t2 - t1, "gpu": gpu}),
               flush=True)
     finally:
@@ -2009,6 +2182,10 @@ def main() -> None:
         if name in sharded_err:  # the rows-sharded LK and FB solves' modes
             kern["sharded_max_abs_err"] = sharded_err[name]
             kern["sharded_launches"] = sharded_launches[name]
+        if name == "warp_pair":  # the sharded pyramid's caller-padded mode
+            kern["padded_max_abs_err"] = padded_warp_err
+        if name in route2_launches:
+            kern["route2_launches"] = route2_launches[name]
         kernels.append(kern)
     for kern in kernels:
         if kern["launches"] < 1:

@@ -25,9 +25,10 @@ launch is ``ops/cuda/fb_fused.py:fb_fused``, which the solve does not call,
 as in the JAX package.
 
 The rows-sharded solve is ``parallel/sharded_kernel.py:farneback_solve_sharded``.
-Not ported yet: the adapter's kernel-sharded branch
-(``models/farneback.py:575-600``, ``parallel/context.py``); it comes with
-auto route 2 (ROADMAP.md Queue 1, items 4-5).
+While ``parallel.context.kernel_sharded_solvers(mesh)`` is active the
+adapter takes this rank's ("y", "x") tiles, gathers them along x into that
+solve's ("y", None) stripes and keeps its own x block; a stripe or level
+the solve refuses raises ``ValueError`` (no single-device fallback).
 """
 
 from __future__ import annotations
@@ -219,6 +220,23 @@ def farneback_solve(im1, im2, u0, v0, window_size=33, n_iters=5, poly_n=7,
     return prev
 
 
+def _farneback_sharded(mesh, im1, im2, u0, v0, **kw):
+    """The rows-sharded Farneback solve on this rank's ("y", "x") tiles (JAX
+    ``models/farneback.py:571-600``): (fx, fy) of its tile."""
+    from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
+    from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
+
+    w = im1.shape[-1]
+    stripes = sk.to_stripes(mesh, im1, im2, u0, v0)
+    shape = (stripes[0].shape[-2] * axis_size(mesh, "y"), stripes[0].shape[-1])
+    if not sk.fb_shard_supported(mesh, shape, kw["window_size"]):
+        raise ValueError(
+            f"Farneback on a mesh: the stripes {tuple(stripes[0].shape)} of {shape} on y = "
+            f"{axis_size(mesh, 'y')} are refused; a stripe needs "
+            f"{max(kw['window_size'] // 2 + 1, 6)} rows")
+    return sk.from_stripes(mesh, w, *sk.farneback_solve_sharded(mesh, *stripes, **kw))
+
+
 class FarnebackAdapter:
     """Driver adapter with the reference constructor surface
     (ref: src/Farneback_PyCL.py:65-122)."""
@@ -241,7 +259,12 @@ class FarnebackAdapter:
         self.provideGenericPyramidalDefaults = provideGenericPyramidalDefaults
 
     def compute(self, im1, im2, U, V):
-        fx, fy = farneback_solve(
+        from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
+
+        mesh = current_kernel_shard()
+        solve = farneback_solve if mesh is None else (
+            lambda *args, **kw: _farneback_sharded(mesh, *args, **kw))
+        fx, fy = solve(
             im1, im2, U, V, window_size=self.windowSize, n_iters=self.numIters,
             poly_n=self.polyN, poly_sigma=float(self.polySigma),
             use_gaussian=self.useGaussianFilter, pyr_scale=float(self.pyrScale),

@@ -11,6 +11,11 @@ tensors.  Parity notes carried over from the JAX package:
   * the adapter keeps the reference's stateful alpha-list pop — one alpha per
     compute() call, last entry first, so the coarsest pyramid level receives
     the final list entry.
+
+While ``parallel.context.kernel_sharded_solvers(mesh)`` is active the
+adapter takes this rank's ("y", "x") tiles and solves on the kernel-sharded
+path (``parallel/sharded_kernel.py:hs_solve_sharded_kernel``); a tile that
+path refuses raises ``ValueError`` (no single-device fallback).
 """
 
 from __future__ import annotations
@@ -41,6 +46,24 @@ def hs_solve(im1, im2, alpha, niter: int, u0, v0):
     return u, v, err
 
 
+def _hs_sharded(mesh, im1, im2, alpha, niter, u0, v0):
+    """The kernel-sharded HS solve on this rank's ("y", "x") tiles (JAX
+    ``models/horn_schunck.py:140-165``); raises where the tiles cannot take
+    the kernel's T-block."""
+    from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
+    from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
+
+    my, mx = axis_size(mesh, "y"), axis_size(mesh, "x")
+    shape = (im1.shape[-2] * my, im1.shape[-1] * mx)
+    t = sk.pick_hs_shard_t(mesh, shape)
+    if t is None:
+        raise ValueError(
+            f"Horn-Schunck on a mesh: the tiles {tuple(im1.shape)} of {shape} on (y, x) = "
+            f"({my}, {mx}) are refused; the kernel-sharded solve needs tiles of at least "
+            f"{hs_iter.STEPS_PER_LAUNCH + 2} cells a side")
+    return sk.hs_solve_sharded_kernel(mesh, im1, im2, alpha, niter, u0, v0, t_block=t)
+
+
 class HSOpticalFlowAlgoAdapter:
     """Driver adapter with the reference's protocol and alpha-list state."""
 
@@ -51,6 +74,11 @@ class HSOpticalFlowAlgoAdapter:
 
     def compute(self, im1, im2, U, V):
         alpha = self.alphas.pop()
+        from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
+
+        mesh = current_kernel_shard()
+        if mesh is not None:
+            return _hs_sharded(mesh, im1, im2, float(alpha), self.Niter, U, V)
         return hs_solve(im1, im2, float(alpha), self.Niter, U, V)
 
     def getAlgoName(self):

@@ -26,9 +26,12 @@ The JAX ``impl`` values ``"xla"``, ``"pallas_build"``, ``"pallas_xlabuild"``
 and ``"pallas_striped"`` choose TPU VMEM layouts and raise here.
 
 The rows-sharded solve is ``parallel/sharded_kernel.py:lk_solve_sharded_kernel``.
-Not ported yet: the adapter's kernel-sharded branch
-(``models/lucas_kanade.py:502-525``, ``parallel/context.py``); it comes with
-auto route 2 (ROADMAP.md Queue 1, items 4-5).
+While ``parallel.context.kernel_sharded_solvers(mesh)`` is active the
+adapter takes this rank's ("y", "x") tiles, gathers them along x into that
+solve's ("y", None) stripes and keeps its own x block; the vorticity test
+takes the global mean.  A stripe the solve refuses raises ``ValueError``
+(no single-device fallback), and so does the error map, a single-device
+opt-in whose SAD pass has no sharded form.
 """
 
 from __future__ import annotations
@@ -294,12 +297,14 @@ def lk_dense_solve(im1, im2, u0, v0, half_window: int = 13, n_iter: int = 5,
     return u, v, status, err
 
 
-def evaluate_vorticity_asym(u, v, enable: bool):
+def evaluate_vorticity_asym(u, v, enable: bool, mesh=None):
     """Vorticity-based asymmetric-window selection
     (ref: src/denseLucasKanade_PyCL.py:75-92); a host-side decision, like
     the reference's pre-launch configuration.  It reads the mean vorticity
     on the host, which waits for the device: enabled, it raises inside a
-    CUDA graph capture (no registered configuration enables it)."""
+    CUDA graph capture (no registered configuration enables it).  On a
+    ``mesh`` u and v are this rank's ("y", "x") tiles and the mean is the
+    whole image's (1-cell "symmetric" halos, the sum all-reduced)."""
     if not enable:
         return (0, 0, 0, 0)
     if capturing():
@@ -308,14 +313,43 @@ def evaluate_vorticity_asym(u, v, enable: bool):
             "forbids: run this adapter eagerly (pipeline_fn or run_config)")
     d = np.array([[0, -1, 0], [0, 0, 0], [0, 1, 0]], np.float32) * 0.5
     # scipy 'reflect' == the 'symmetric' border
-    dv = correlate3x3(v.to(torch.float32), d.T[::-1, ::-1].copy(), "symmetric")
-    du = correlate3x3(u.to(torch.float32), d[::-1, ::-1].copy(), "symmetric")
-    omega = float(torch.mean(dv - du))
+    kv, ku = d.T[::-1, ::-1].copy(), d[::-1, ::-1].copy()
+    u, v = u.to(torch.float32), v.to(torch.float32)
+    if mesh is None:
+        omega = float(torch.mean(correlate3x3(v, kv, "symmetric")
+                                 - correlate3x3(u, ku, "symmetric")))
+    else:
+        from opticalflow_ri_tpu_torch.parallel.halo import reduce_over
+        from opticalflow_ri_tpu_torch.parallel.sharded import _corr3_sharded
+
+        curl = _corr3_sharded(v, kv, "symmetric", mesh) - _corr3_sharded(u, ku, "symmetric", mesh)
+        total = reduce_over(torch.stack([curl.double().sum(),
+                                         torch.tensor(float(curl.numel()), dtype=torch.float64,
+                                                      device=curl.device)]), mesh)
+        omega = float(total[0] / total[1])
     if omega < -2e-3:
         return (0, 1, 0, 1)
     if omega > 2e-3:
         return (1, 0, 0, 1)
     return (0, 0, 0, 0)
+
+
+def _lk_sharded(mesh, im1, im2, u0, v0, half_window, n_iter, asym, max_shift):
+    """The rows-sharded LK kernel solve on this rank's ("y", "x") tiles (JAX
+    ``models/lucas_kanade.py:499-525``): (u, v) of its tile."""
+    from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
+    from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
+
+    w = im1.shape[-1]
+    stripes = sk.to_stripes(mesh, im1, im2, u0, v0)
+    shape = (stripes[0].shape[-2] * axis_size(mesh, "y"), stripes[0].shape[-1])
+    if sk.pick_lk_shard_stripe(mesh, shape, half_window, max_shift) is None:
+        raise ValueError(
+            f"dense LK on a mesh: the stripes {tuple(stripes[0].shape)} of {shape} on y = "
+            f"{axis_size(mesh, 'y')} are refused; a stripe needs {lk_pad(max_shift)} rows")
+    u, v, _ = sk.lk_solve_sharded_kernel(mesh, *stripes, half_window=half_window,
+                                         n_iter=n_iter, asym=asym, max_shift=max_shift)
+    return sk.from_stripes(mesh, w, u, v)
 
 
 class DenseLucasKanadeAdapter:
@@ -337,7 +371,17 @@ class DenseLucasKanadeAdapter:
         self.lastErrorMap = None
 
     def compute(self, im1, im2, U, V):
-        asym = evaluate_vorticity_asym(U, V, self.enableVorticityEnhancement)
+        from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
+
+        mesh = current_kernel_shard()
+        asym = evaluate_vorticity_asym(U, V, self.enableVorticityEnhancement, mesh)
+        if mesh is not None:
+            if self.computeErrorMap:
+                raise ValueError("computeErrorMap=True on a mesh: the error map is a "
+                                 "single-device opt-in (its SAD pass has no sharded form)")
+            u, v = _lk_sharded(mesh, im1, im2, U, V, self.halfWindow, self.Niter, asym,
+                               self.max_shift)
+            return u, v, True
         out = lk_dense_solve(
             im1, im2, U, V, half_window=self.halfWindow, n_iter=self.Niter, asym=asym,
             max_shift=self.max_shift, calc_err=self.computeErrorMap,

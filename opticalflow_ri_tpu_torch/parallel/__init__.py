@@ -15,15 +15,24 @@ rank's LOCAL tiles:
     ``make_mesh``.
 
   * rows-sharded dense LK and Farneback on their kernels' sharded modes
-    (``lk_solve_sharded_kernel``, ``farneback_solve_sharded``).
+    (``lk_solve_sharded_kernel``, ``farneback_solve_sharded``, every level
+    of the Farneback pyramid);
+  * the sharded pyramid: ``kernel_sharded_solvers(mesh)`` (``context.py``)
+    makes the pyramid run its glue on tiles (``sharded_glue.py``) and the
+    four adapters their kernel-sharded solves; ``auto.auto_sharded_pipeline``
+    runs every configuration that way (route 2), the single-level HS ones
+    on route 1.
 
-Not ported yet (ROADMAP.md, Queue 1, items 4-5): ``context.py`` and the
-adapters' sharded branches, and ``auto_sharded_pipeline``'s GSPMD route
-(with it, a sharded Farneback pyramid of more than one level).
+Not ported: ``liu_shen_warp`` (``biLinear=False``, no configuration) on a
+mesh of more than one rank raises (ROADMAP.md, Queue 1).
 """
 
 from opticalflow_ri_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
-from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo
+from opticalflow_ri_tpu_torch.parallel.context import (
+    current_kernel_shard,
+    kernel_sharded_solvers,
+)
+from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, gather_axis
 from opticalflow_ri_tpu_torch.parallel.sharded import (
     batched_hs_pipeline,
     hs_solve_sharded,
@@ -42,7 +51,8 @@ from opticalflow_ri_tpu_torch.parallel.batch_stream import (
 )
 
 __all__ = [
-    "make_mesh", "mesh_shape_for", "exchange_halo",
+    "make_mesh", "mesh_shape_for", "exchange_halo", "gather_axis",
+    "kernel_sharded_solvers", "current_kernel_shard",
     "hs_solve_sharded", "liu_shen_solve_sharded", "batched_hs_pipeline",
     "lk_solve_sharded_kernel", "pick_lk_shard_stripe",
     "farneback_solve_sharded", "farneback_iterate_sharded", "fb_shard_supported",

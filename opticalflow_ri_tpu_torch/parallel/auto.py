@@ -1,20 +1,27 @@
-"""Sharded execution of whole configurations over a mesh (port of route 1 of
+"""Sharded execution of whole configurations over a mesh (port of
 ``parallel/auto.py``).
+
+    mesh = make_mesh(4)
+    fn = auto_sharded_pipeline("PyHSchunck_Fs3_4_PyrLvls2", mesh)
+    u, v = fn(im1_tile, im2_tile)      # this rank's ("y", "x") tiles
 
 Route 1, kernel-sharded: the single-level Horn-Schunck configurations run
 the calibrated pre-filter and the HS solve on each rank's tile, the solve on
 the Hopper kernel with one T-deep halo exchange per launch
 (``sharded_kernel.py``).
 
-    mesh = make_mesh(4)
-    fn = auto_sharded_pipeline("PyHSchunck_Fs3_4", mesh)
-    u, v = fn(im1_tile, im2_tile)      # this rank's ("y", "x") tiles
-
-Route 2 of the JAX package traces any other configuration with GSPMD, which
-partitions the pyramid's resize, warp and pre-filter ops across the mesh.
-PyTorch has no counterpart of that partitioner, so on a mesh of more than
-one rank those configurations raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1, item 4); nothing else runs in their place.
+Route 2, the sharded pyramid: every other configuration runs
+``build_config(name).run`` on the rank's tiles inside
+``context.kernel_sharded_solvers(mesh)``.  There the pyramid runs its glue
+in tile form (``sharded_glue.py``: banded PIL resizes with an exchanged
+apron, the dense spline upsample on gathers, K3's caller-padded warp, the
+pre-filters with halos), and the four adapters run their kernel-sharded
+solves (HS on the tiles; Liu-Shen, LK and Farneback on stripes gathered
+along x).  The JAX package traces the same pyramid for GSPMD, which
+partitions the glue and falls back to XLA per solve where a tile is
+refused; the port has no partitioner, so a level or tile that does not
+split or that a solve refuses raises ``ValueError``.  Nothing gathers the
+image onto one rank.
 """
 
 from __future__ import annotations
@@ -25,13 +32,13 @@ from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
 
 # single-level Horn-Schunck configs: pipeline == calibrated prefilter + one
 # HS solve, exactly what the kernel-sharded step implements
-_HS_SINGLE_LEVEL = {"PyHSchunck_Fs3_4", "HS_Fs3_4", "HS_Fs0_0"}
+HS_SINGLE_LEVEL = {"PyHSchunck_Fs3_4", "HS_Fs3_4", "HS_Fs0_0"}
 
 
 def hs_kernel_sharded_eligible(name: str, mesh, shape):
     """T-block when ``auto_sharded_pipeline`` takes route 1 for ``name`` at
     the global ``shape``; None otherwise."""
-    if name not in _HS_SINGLE_LEVEL:
+    if name not in HS_SINGLE_LEVEL:
         return None
     from opticalflow_ri_tpu_torch.parallel.sharded_kernel import pick_hs_shard_t
 
@@ -70,22 +77,40 @@ def _hs_config_kernel_sharded(name: str, mesh):
     return sharded
 
 
+def _pyramid_sharded(name: str, mesh):
+    """Route 2: (im1, im2) -> (U, V) on this rank's ("y", "x") tiles, the
+    whole configuration run inside ``kernel_sharded_solvers(mesh)``."""
+    from opticalflow_ri_tpu_torch.configs import build_config
+    from opticalflow_ri_tpu_torch.parallel.context import kernel_sharded_solvers
+
+    cfg = build_config(name)
+
+    def sharded(im1, im2):
+        with kernel_sharded_solvers(mesh):
+            return cfg.run(im1.to(torch.float32), im2.to(torch.float32))
+
+    return sharded
+
+
 def auto_sharded_pipeline(name: str, mesh, batch: bool = False, _force_sharded: bool = False):
     """(im1, im2) -> (U, V) running SPMD over ``mesh`` on this rank's tiles.
 
     A one-rank mesh returns the plain ``compile.compiled_pipeline(name)``
     (``scan_pipeline`` with ``batch=True``): there is nothing to decompose
-    (``_force_sharded=True`` takes route 1 anyway, for measurement).
-    Otherwise the single-level HS configs take route 1; any other config,
-    and ``batch=True`` (JAX's vmapped GSPMD route; ``batch_sharded_scan``
-    is the campaign construct), raise ``NotImplementedError``."""
+    (``_force_sharded=True`` takes the sharded route anyway, for
+    measurement).  Otherwise the single-level HS configs take route 1 and
+    every other config route 2 (the module docstring).  ``batch=True``
+    (JAX's vmapped GSPMD route) raises ``NotImplementedError`` on more
+    than one rank: ``batch_sharded_scan`` is the campaign construct."""
     if mesh.size() == 1 and not _force_sharded:
         from opticalflow_ri_tpu_torch.compile import compiled_pipeline, scan_pipeline
 
         return scan_pipeline(name) if batch else compiled_pipeline(name)
-    if batch or name not in _HS_SINGLE_LEVEL:
+    if batch:
         raise NotImplementedError(
-            f"auto_sharded_pipeline({name!r}, batch={batch}) needs the JAX package's GSPMD route "
-            f"(route 2), which the port has not got: see ROADMAP.md, Queue 1, item 4 (for "
-            f"campaigns of pairs use parallel.batch_sharded_scan)")
-    return _hs_config_kernel_sharded(name, mesh)
+            f"auto_sharded_pipeline({name!r}, batch=True) on a mesh: the JAX package vmaps its "
+            f"GSPMD route, which has no counterpart here; for campaigns of pairs use "
+            f"parallel.batch_sharded_scan")
+    if name in HS_SINGLE_LEVEL:
+        return _hs_config_kernel_sharded(name, mesh)
+    return _pyramid_sharded(name, mesh)

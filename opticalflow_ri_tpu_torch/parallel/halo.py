@@ -22,7 +22,9 @@ Transport, chosen by the group's backend:
 
 ``reduce_over`` all-reduces a tensor over mesh axes with the same staging
 rule (the sharded solvers' error norms and image maxima: JAX's psum and
-pmax).
+pmax).  ``gather_axis`` all-gathers the tiles along one mesh axis (the
+dense spline upsample, and the rows-only solvers' stripes on a mesh with
+x > 1: what GSPMD does for JAX's ``in_specs=P("y", None)``).
 """
 
 from __future__ import annotations
@@ -142,6 +144,34 @@ def exchange_halo(x, halo, mode, mesh, axis_y: str = "y", axis_x: str = "x"):
 
 
 exchange_halo.exchanges = 0
+
+
+def gather_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The tiles of this rank's group along mesh ``axis`` concatenated along
+    ``dim`` of ``x``, in the group's rank order: every rank of the group
+    ends with the same tensor.  Every rank calls it with a tile of the same
+    shape.  NCCL gathers device to device (``all_gather_into_tensor``);
+    gloo moves the tiles through host memory when they lie on the card, as
+    ``_send_recv`` does.  Each collective is counted in
+    ``gather_axis.gathers``; a one-rank axis returns ``x`` and moves
+    nothing."""
+    p = axis_size(mesh, axis)
+    if p == 1:
+        return x
+    gather_axis.gathers += 1
+    group = axis_group(mesh, axis)
+    src = x.contiguous()
+    if _staged(group, src) or src.device.type == "cpu":   # gloo
+        host = src.to("cpu")
+        parts = [torch.empty_like(host) for _ in range(p)]
+        dist.all_gather(parts, host, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+    out = torch.empty((p * src.shape[0], *src.shape[1:]), dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return torch.cat(out.chunk(p, dim=0), dim=dim)
+
+
+gather_axis.gathers = 0
 
 
 def reduce_over(t: torch.Tensor, mesh, axes=("y", "x"), op: str = "sum") -> torch.Tensor:

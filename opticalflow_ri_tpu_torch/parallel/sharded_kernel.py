@@ -48,11 +48,13 @@ from opticalflow_ri_tpu_torch.ops.cuda import (
     blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample,
 )
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
-from opticalflow_ri_tpu_torch.ops.resize import pil_resize
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3_padded
 from opticalflow_ri_tpu_torch.parallel import sharded as _sh
-from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, reduce_over
+from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, gather_axis, reduce_over
 from opticalflow_ri_tpu_torch.parallel.mesh import axis_index, axis_size
+from opticalflow_ri_tpu_torch.parallel.sharded_glue import (
+    check_splits, pil_band, pil_resize_sharded,
+)
 
 _Y_ONLY = ("y",)
 
@@ -88,6 +90,22 @@ def _crop(zp, h, w, t, apron):
     top, _, left, _ = apron
     r, c = (t if top else 0), (t if left else 0)
     return zp[..., r : r + h, c : c + w]
+
+
+def to_stripes(mesh, *tiles) -> list:
+    """("y", "x") tiles to the ("y", None) stripes the rows-only solvers
+    take: one gather along x for all of them (GSPMD's all-gather for JAX's
+    ``in_specs=P("y", None)``).  A mesh with x = 1 moves nothing."""
+    if axis_size(mesh, "x") == 1:
+        return [t.to(torch.float32) for t in tiles]
+    return list(gather_axis(torch.stack([t.to(torch.float32) for t in tiles]), mesh, "x",
+                            -1).unbind(0))
+
+
+def from_stripes(mesh, w: int, *stripes) -> list:
+    """This rank's x block, ``w`` columns wide, of each stripe."""
+    c0 = axis_index(mesh, "x") * w
+    return [z[..., c0:c0 + w].contiguous() for z in stripes]
 
 
 # ---------------------------------------------------------------------------
@@ -356,17 +374,48 @@ def farneback_iterate_sharded(mesh, r0, r1, fx, fy, window_size: int, use_gaussi
     return fx, fy
 
 
-def _fb_expansion_local(im, lvl, h, w, poly_n, poly_sigma, mesh):
+def _fb_expansion_local(im, lvl, poly_n, poly_sigma, mesh):
     """The level's expansion of one image on this rank's stripe: the
     bit-exact blur (smooth // 2 "mirror" rows exchanged, 1 at level 0), the
-    resize to the level (a whole-image op: a one-rank mesh only, or the
-    same size), then the expansion (poly_n "nearest" rows exchanged)."""
+    PIL-bilinear resize to the level across the stripes
+    (``sharded_glue.pil_resize_sharded``, rows sharded), then the expansion
+    (poly_n "nearest" rows exchanged)."""
     half = lvl["smooth"] // 2
     b = fb.gaussian_blur_padded(exchange_halo(im, ((half, half), (0, 0)), "mirror", mesh),
                                 lvl["smooth"], lvl["sigma"])
-    b = pil_resize(b, (h, w), "bilinear")
+    b = pil_resize_sharded(b, (lvl["height"], lvl["width"]), "bilinear", mesh, _Y_ONLY)
     return fb.poly_expansion_padded(exchange_halo(b, ((poly_n, poly_n), (0, 0)), "nearest",
                                                   mesh), poly_n, poly_sigma).contiguous()
+
+
+def _fb_check_levels(mesh, plan, h_loc, window_size, R, poly_n):
+    """Raise ``ValueError`` naming the first level whose stripes the
+    iteration or the glue's halos refuse: the level's rows split over y,
+    ``fb_shard_supported``, and with more than one rank the expansion's
+    poly_n rows, the blur's smooth // 2 and the PIL-bilinear bands (the
+    level's own, and the flow's from the level before) within the
+    neighbour's stripe."""
+    my = axis_size(mesh, "y")
+    rows = h_loc * my
+    prev = None
+    for k, lvl in enumerate(plan):
+        shape = (lvl["height"], lvl["width"])
+        what = (f"farneback_solve_sharded level {len(plan) - 1 - k} (scale {lvl['scale']}), "
+                f"shape {shape}, on y = {my}")
+        lh = check_splits(shape, mesh, what, _Y_ONLY)[0]
+        if not fb_shard_supported(mesh, shape, window_size, R):
+            raise ValueError(f"{what}: a stripe of {lh} rows is refused; it needs "
+                             f"{max(window_size // 2 + 1, R + 1)} (window {window_size}, R {R})")
+        if my > 1 and (lh < poly_n or h_loc <= lvl["smooth"] // 2):
+            raise ValueError(f"{what}: a stripe of {lh} rows (level 0: {h_loc}) is thinner than "
+                             f"the expansion's {poly_n} rows or the blur's "
+                             f"{lvl['smooth'] // 2}")
+        try:
+            pil_band(rows, shape[0], "bilinear", my)
+            pil_band(prev or rows, shape[0], "bilinear", my)
+        except ValueError as err:
+            raise ValueError(f"{what}: {err}") from None
+        prev = shape[0]
 
 
 def farneback_solve_sharded(mesh, im1, im2, u0, v0, window_size=33, n_iters=5, poly_n=7,
@@ -374,38 +423,29 @@ def farneback_solve_sharded(mesh, im1, im2, u0, v0, window_size=33, n_iters=5, p
                             sample_max_shift: int = 5):
     """The Farneback pipeline on this rank's ("y", None) stripes; the
     contract of models.farneback.farneback_solve.  Each level's glue (blur,
-    expansion) runs on the stripe with halo exchanges, its iteration loop in
-    ``farneback_iterate_sharded``.
-
-    A pyramid of more than one level needs a resize across stripes (auto
-    route 2's, ROADMAP.md Queue 1 item 5): on a mesh with y > 1 it raises
-    NotImplementedError.  Every FB config solves one internal level; a
-    one-rank mesh runs every level."""
+    resize to the level, expansion, the flow's resize from the level
+    before) runs on the stripes with halo exchanges, its iteration loop in
+    ``farneback_iterate_sharded``.  Every level's conditions are checked
+    before any work: a level they refuse raises ``ValueError``."""
     h_loc, w = im1.shape[-2], im1.shape[-1]
     my = axis_size(mesh, "y")
     plan = fb._level_plan(h_loc * my, w, pyr_scale, pyr_levels - 1)
-    if my > 1 and len(plan) > 1:
-        raise NotImplementedError(
-            f"farneback_solve_sharded: {len(plan)} pyramid levels on y = {my} need the stripe "
-            "resize of auto route 2 (ROADMAP.md Queue 1, item 5)")
     R = int(sample_max_shift)
-    # the glue's halos reach no further than the neighbour's stripe
-    if not fb_shard_supported(mesh, (h_loc * my, w), window_size, R) or (
-            my > 1 and (h_loc < poly_n or h_loc <= plan[0]["smooth"] // 2)):
-        raise ValueError(f"fb kernel-sharded path unsupported for local stripe ({h_loc}, {w}) "
-                         f"on y = {my}: window {window_size}, R {R}, poly_n {poly_n}")
+    _fb_check_levels(mesh, plan, h_loc, window_size, R, poly_n)
     im1, im2, u0, v0 = _sh._f32(im1, im2, u0, v0)
+
+    def resize(z, lvl):
+        return pil_resize_sharded(z, (lvl["height"], lvl["width"]), "bilinear", mesh, _Y_ONLY)
+
     prev = None
     for lvl in plan:
-        h, w_l = (lvl["height"], lvl["width"]) if my == 1 else (h_loc, w)
         if prev is None:
             f = float(np.float32(lvl["scale"]))
-            fx, fy = (pil_resize(z, (h, w_l), "bilinear") * f for z in (u0, v0))
+            fx, fy = (resize(z, lvl) * f for z in (u0, v0))
         else:
             f = float(np.float32(1.0 / pyr_scale))
-            fx, fy = (pil_resize(z, (h, w_l), "bilinear") * f for z in prev)
-        ra, rb = (_fb_expansion_local(im, lvl, h, w_l, poly_n, poly_sigma, mesh)
-                  for im in (im1, im2))
+            fx, fy = (resize(z, lvl) * f for z in prev)
+        ra, rb = (_fb_expansion_local(im, lvl, poly_n, poly_sigma, mesh) for im in (im1, im2))
         prev = farneback_iterate_sharded(mesh, ra, rb, fx.contiguous(), fy.contiguous(),
                                          window_size, use_gaussian, n_iters, R)
     return prev

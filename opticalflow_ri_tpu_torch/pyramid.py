@@ -13,6 +13,13 @@ Adapters follow the reference protocol: ``compute(im1, im2, U, V) ->
 (U, V, error)``, ``getAlgoName()``, ``hasGenericPyramidalDefaults()``,
 ``getGenericPyramidalDefaults()``.
 
+While ``parallel.context.kernel_sharded_solvers(mesh)`` is active (route 2
+of ``parallel.auto.auto_sharded_pipeline``) the images are this rank's
+("y", "x") tiles: the glue runs in its tile form
+(``parallel/sharded_glue.py``) on the global level shapes worked out from
+the tile and the mesh, and the adapters run their kernel-sharded solves.
+Outside the context every call is the single-device one.
+
 Tensor inputs stay on their device; numpy inputs go to ``device`` (default
 "cuda").  Nothing moves to the CPU behind the caller's back, and nothing on
 the path waits for the device, so a run can be captured in a CUDA graph
@@ -51,11 +58,45 @@ def _log_error(adapter, error) -> None:
         log.info("%s estimated error for image registration: %s", adapter.getAlgoName(), error)
 
 
+def _tile_mesh():
+    """The mesh of an active ``kernel_sharded_solvers`` context, or None.
+    Imported at call time: ``parallel`` imports the models, which the
+    importers of this module import first."""
+    from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
+
+    return current_kernel_shard()
+
+
+def _glue():
+    from opticalflow_ri_tpu_torch.parallel import sharded_glue
+
+    return sharded_glue
+
+
+def _shape(im, mesh) -> tuple:
+    """The (H, W) of the image: the tile's global shape on a mesh."""
+    if mesh is None:
+        return im.shape[-2], im.shape[-1]
+    return _glue().global_shape(im.shape, mesh)
+
+
+def _prefilter(im, sigma, ksize, mesh):
+    if mesh is None:
+        return gaussian_filter_px(im, sigma, ksize)
+    from opticalflow_ri_tpu_torch.parallel.sharded import _prefilter_local
+
+    return _prefilter_local(im, sigma, ksize, mesh)
+
+
 def _imresize_bicubic(im, scale):
     """PIL-convention size rounding (``pyramid.py:34-38``)."""
-    out_w = int(np.round(im.shape[1] * scale))
-    out_h = int(np.round(im.shape[0] * scale))
-    return pil_resize(im, (out_h, out_w), "bicubic")
+    mesh = _tile_mesh()
+    in_h, in_w = _shape(im, mesh)
+    out_w = int(np.round(in_w * scale))
+    out_h = int(np.round(in_h * scale))
+    if mesh is None:
+        return pil_resize(im, (out_h, out_w), "bicubic")
+    return _glue().pil_resize_sharded(im, (out_h, out_w), "bicubic", mesh)
 
 
 def update_next_pyramidal_level(
@@ -63,13 +104,20 @@ def update_next_pyramidal_level(
     warping=True, bi_linear=True, scale=False,
 ):
     """Carry accumulated flow (and optionally warp the image pair) into a new
-    pyramid level.  Returns (im1, im2, u_accum, v_accum, u_init, v_init)."""
-    y_dim, x_dim = im1_next.shape[-2], im1_next.shape[-1]
+    pyramid level.  Returns (im1, im2, u_accum, v_accum, u_init, v_init).
+    On a mesh (the module docstring) the arrays are tiles and ``prev_shape``
+    the previous level's tile shape."""
+    mesh = _tile_mesh()
+    y_dim, x_dim = _shape(im1_next, mesh)
     y_prev, x_prev = prev_shape
+    if mesh is not None:
+        y_prev, x_prev = _glue().global_shape(prev_shape, mesh)
 
     if (x_prev, y_prev) != (x_dim, y_dim):
-        us_new = spline_upsample(u_accum, (y_dim, x_dim))
-        vs_new = spline_upsample(v_accum, (y_dim, x_dim))
+        upsample = spline_upsample if mesh is None else (
+            lambda z, hw: _glue().spline_upsample_sharded(z, hw, mesh))
+        us_new = upsample(u_accum, (y_dim, x_dim))
+        vs_new = upsample(v_accum, (y_dim, x_dim))
     else:
         us_new = u_accum
         vs_new = v_accum
@@ -78,12 +126,17 @@ def update_next_pyramidal_level(
         us_new = us_new * float(np.float32(x_dim) / np.float32(x_prev))
         vs_new = vs_new * float(np.float32(y_dim) / np.float32(y_prev))
 
-    zeros = torch.zeros((y_dim, x_dim), dtype=torch.float32, device=im1_next.device)
+    zeros = torch.zeros(im1_next.shape[-2:], dtype=torch.float32, device=im1_next.device)
     if warping:
-        if bi_linear:
+        if bi_linear and mesh is None:
             im1_next, im2_next = symmetric_warp_pair(im1_next, im2_next, us_new, vs_new)
-        else:
+        elif bi_linear:
+            im1_next, im2_next = _glue().symmetric_warp_pair_sharded(im1_next, im2_next, us_new,
+                                                                     vs_new, mesh)
+        elif mesh is None:
             im1_next = liu_shen_warp(im1_next, us_new, vs_new)
+        else:
+            im1_next = _glue().liu_shen_warp_sharded(im1_next, us_new, vs_new, mesh)
         return im1_next, im2_next, us_new, vs_new, zeros, zeros
     return im1_next, im2_next, zeros, zeros, us_new, vs_new
 
@@ -100,6 +153,13 @@ def generic_pyramidal_optical_flow(
     im2 = _as_image(im2, device)
     if im1.device != im2.device:
         raise ValueError(f"images on different devices: {im1.device} and {im2.device}")
+    mesh = _tile_mesh()
+    if mesh is not None:   # every level's global shape splits over the mesh, or raise
+        h, w = _shape(im1, mesh)
+        for level in range(1, pyramidalLevels + 1):
+            scale = 1.0 / (2.0 ** (pyramidalLevels - level))
+            shape = (int(np.round(h * scale)), int(np.round(w * scale))) if scale < 1.0 else (h, w)
+            _glue().check_splits(shape, mesh, f"pyramid level {level} of {pyramidalLevels}")
 
     if mainOFlowAlgoAdapter.hasGenericPyramidalDefaults():
         defaults = mainOFlowAlgoAdapter.getGenericPyramidalDefaults()
@@ -148,14 +208,14 @@ def generic_pyramidal_optical_flow(
             u = v = u_accum = v_accum = zeros
 
         if FILTER > 1e-3:
-            im1_work = gaussian_filter_px(im1_warp, FILTER, 3)
-            im2_work = gaussian_filter_px(im2_warp, FILTER, 3)
+            im1_work = _prefilter(im1_warp, FILTER, 3, mesh)
+            im2_work = _prefilter(im2_warp, FILTER, 3, mesh)
         else:
             im1_work, im2_work = im1_warp, im2_warp
 
         if optionalOFlowAlgoAdapter is not None and FILTER_OPT > 1e-3:
-            im1_opt = gaussian_filter_px(im1_new, FILTER_OPT, 5)
-            im2_opt = gaussian_filter_px(im2_new, FILTER_OPT, 5)
+            im1_opt = _prefilter(im1_new, FILTER_OPT, 5, mesh)
+            im2_opt = _prefilter(im2_new, FILTER_OPT, 5, mesh)
         elif optionalOFlowAlgoAdapter is not None:
             im1_opt, im2_opt = im1_new, im2_new
 
@@ -168,8 +228,8 @@ def generic_pyramidal_optical_flow(
                         warping, biLinear, False,
                     )
                     if FILTER > 1:
-                        im1_work = gaussian_filter_px(im1_warp, FILTER, 3)
-                        im2_work = gaussian_filter_px(im2_warp, FILTER, 3)
+                        im1_work = _prefilter(im1_warp, FILTER, 3, mesh)
+                        im2_work = _prefilter(im2_warp, FILTER, 3, mesh)
                     else:
                         im1_work, im2_work = im1_warp, im2_warp
                 else:

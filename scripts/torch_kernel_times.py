@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the port's HS Jacobi (K1/K2), Liu-Shen solve (K4/K5), LK plane build
 (K6), LK Gauss-Newton (K7) and fused LK (K8), Farneback window blur + solve
-(K12/K13) and fused Farneback loop (K14) kernels on one GPU.
+(K12/K13), fused Farneback loop (K14) and pair warp (K3) kernels on one GPU.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--shapes 512 2048]
         [--hs-steps 4 8 16] [--hs-niters 100] [--ls-steps 4 8 12]
-        [--skip hs ls lk fb] [--configs NAME ...] [--reps 15]
+        [--skip hs ls lk fb warp] [--configs NAME ...] [--reps 15]
 
 For each square shape: HS (alpha 21, random derivatives of two uniform
 frames, zero flow); Liu-Shen (h = 10, fields of two uniform frames, zero
@@ -24,7 +24,10 @@ expansions from zero flow (33-tap Gaussian) at 0, 1 and 5 rounds (the
 fixed cost and the cost a round), with
 ``unfused_device_ms``, the same rounds as K9 then K12 (``fb_fused_plain``'s
 sequence on the kernels) in one CUDA graph, and ``bitwise`` against the plain
-loop.  Per kernel call it prints one JSON line with
+loop; the pair warp on two uniform frames and |d| <= 4 flows, the
+whole-image call and, where the tree has it, the caller-padded mode on an
+interior tile of half the height and width (``bitwise_whole_cropped``
+against the whole-image call).  Per kernel call it prints one JSON line with
   * ``event_ms``: median of CUDA-event intervals around one synchronised call,
     the kernel and its plain PyTorch version in alternating turns, as
     ``chip_smoke.py`` times them;
@@ -48,6 +51,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -68,7 +72,7 @@ def main() -> None:
     ap.add_argument("--hs-niters", type=int, nargs="+", default=[100])
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--ls-steps", type=int, nargs="*", default=[])
-    ap.add_argument("--skip", nargs="*", default=[], choices=["hs", "ls", "lk", "fb"])
+    ap.add_argument("--skip", nargs="*", default=[], choices=["hs", "ls", "lk", "fb", "warp"])
     ap.add_argument("--configs", nargs="*", default=[],
                     help="also time these configs end to end on the 512^2 pair")
     args = ap.parse_args()
@@ -85,7 +89,8 @@ def main() -> None:
     from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
     from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build
     from opticalflow_ri_tpu_torch.ops.cuda import fb_fused, lk_iter
-    from opticalflow_ri_tpu_torch.ops.cuda import tent_sample
+    from opticalflow_ri_tpu_torch.ops.cuda import tent_sample, warp_tent
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -366,6 +371,49 @@ def main() -> None:
                      host_ms=host_ms(fused, reps), bound_ms=b, bound_by=by,
                      issue_floor_ms=2 * b)
             del r0, r1, m, z
+            torch.cuda.empty_cache()
+        if "warp" not in args.skip:
+            # K3, the pair warp (|d| <= 4): the whole-image call, and where
+            # the tree has it the caller-padded mode on an interior tile of
+            # half the height and width (an 8-cell apron of the neighbours'
+            # cells on every side)
+            ims = [rand(shape, 0, 255) for _ in range(2)]
+            flows = [rand(shape, -4, 4) for _ in range(4)]
+
+            def kernel():
+                return warp_tent.warp_pair(*ims, *flows)
+
+            def plain():
+                return warp_tent.warp_pair_plain(*ims, *flows)
+
+            k, p = ab(kernel, plain, reps)
+            b, by = bound_ms(*kernel_costs(n, n)["warp_pair"])
+            emit(kernel="warp_pair", shape=list(shape), mode="whole image", event_ms=k,
+                 plain_event_ms=p, device_ms=device_ms(kernel, 50), host_ms=host_ms(kernel, reps),
+                 bound_ms=b, bound_by=by)
+            if "apron" in inspect.signature(warp_tent.warp_pair).parameters:
+                a, th, tw = 8, n // 2, n // 2
+                r0 = c0 = n // 4
+                tiles = [pad2d(im, a, "nearest")[r0:r0 + th + 2 * a, c0:c0 + tw + 2 * a]
+                         .contiguous() for im in ims]
+                cut = [f[r0:r0 + th, c0:c0 + tw].contiguous() for f in flows]
+                tile = dict(apron=a, row0=r0, col0=c0, img_h=n, img_w=n)
+
+                def padded():
+                    return warp_tent.warp_pair(*tiles, *cut, **tile)
+
+                def padded_plain():
+                    return warp_tent.warp_pair_plain(*tiles, *cut, **tile)
+
+                same = all(torch.equal(g, w_[r0:r0 + th, c0:c0 + tw])
+                           for g, w_ in zip(padded(), kernel()))
+                k, p = ab(padded, padded_plain, reps)
+                b, by = bound_ms(*kernel_costs(th, tw)["warp_pair"])
+                emit(kernel="warp_pair", shape=[th, tw], mode=f"padded, interior tile of {n}^2",
+                     bitwise_whole_cropped=same, event_ms=k, plain_event_ms=p,
+                     device_ms=device_ms(padded, 50), host_ms=host_ms(padded, reps),
+                     bound_ms=b, bound_by=by)
+            del ims, flows
             torch.cuda.empty_cache()
     print(gpu)
 

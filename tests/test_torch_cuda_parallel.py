@@ -12,9 +12,12 @@ launches: their u, v equal the single-device port's bit for bit, and err
 agrees to 1e-6 relative; the rows-sharded LK and Farneback equal
 ``lk_dense_solve`` and ``farneback_solve`` bit for bit.  The sharded modes
 of K7 (global rows), K9 (stripe mode with each apron) and K12 (the four y
-masks) equal their plain versions on stripes bit for bit.  (Four ranks on
-one card, over gloo with the halos staged through host memory, are driven
-by ``chip_smoke.py``'s parallel phase.)
+masks) equal their plain versions on stripes bit for bit.  K3's
+caller-padded mode equals its plain version and the whole-image kernel
+cropped, bit for bit; route 2 of every configuration on one rank is held
+to ``run_config`` (AEE <= 5e-6).  (Four ranks on one card, over gloo with
+the halos staged through host memory, are driven by ``chip_smoke.py``'s
+parallel phase.)
 """
 
 import numpy as np
@@ -199,3 +202,67 @@ def test_update_matrices_stripe_and_blur_masks_equal_plain(row0, rows):
         got = blur5_flow.blur5_flow(mm, taps, mode, scale, edges)
         want = blur5_flow.blur5_flow_plain(mm, taps, mode, scale, edges)
         assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), use_gaussian
+
+
+# ---------------------------------------------------------------------------
+# the sharded pyramid: K3's caller-padded mode and route 2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dmax", [4.0, 12.0], ids=["calibrated", "wild"])
+def test_warp_padded_mode_equals_whole_image_cropped(dmax):
+    """K3 in its caller-padded mode (an 8-cell "nearest" apron) against its
+    plain version and against the whole-image kernel cropped to the tile,
+    bit for bit, under all 16 combinations of border and interior sides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
+
+    h, w, a = 333, 517, 8
+    rng = np.random.default_rng(int(dmax))
+    ims = [torch.tensor(rng.uniform(0, 255, (h, w)).astype(np.float32), device="cuda")
+           for _ in range(2)]
+    flows = [torch.tensor(rng.uniform(-dmax, dmax, (h, w)).astype(np.float32), device="cuda")
+             for _ in range(4)]
+    whole = warp_tent.warp_pair(*ims, *flows)
+    padded = [pad2d(im, a, "nearest") for im in ims]
+    for top, bottom, left, right in itertools.product((True, False), repeat=4):
+        r0, r1 = (0 if top else 101), (h if bottom else h - 77)
+        c0, c1 = (0 if left else 130), (w if right else w - 200)
+        tiles = [p[r0:r1 + 2 * a, c0:c1 + 2 * a].contiguous() for p in padded]
+        cut = [f[r0:r1, c0:c1].contiguous() for f in flows]
+        tile = dict(apron=a, row0=r0, col0=c0, img_h=h, img_w=w)
+        got = warp_tent.warp_pair(*tiles, *cut, **tile)
+        plain = warp_tent.warp_pair_plain(*tiles, *cut, **tile)
+        for g, p, want in zip(got, plain, whole):
+            assert torch.equal(g, p) and torch.equal(g, want[r0:r1, c0:c1])
+
+
+ROUTE2 = ("PyHSchunck_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", "denseLK_Fs2_0",
+          "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2", "Farneback_Fs0_0",
+          "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2", "HS_Fs3_4_PyrLvls2",
+          "LiuSE_HS_Fs3_4_PyrLvls2", "LK_Fs2_0", "LK_Fs2_0_PyrLvls2", "LiuSE_LK_Fs2_0_PyrLvls2",
+          "FB_Fs0_0", "FB_Fs0_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2")
+
+
+@pytest.mark.parametrize("name", ROUTE2)
+def test_auto_route2_on_one_nccl_rank(nccl_mesh, name):
+    """Route 2 (``_force_sharded=True``) on a one-rank mesh against
+    ``run_config`` at 256 x 384: AEE <= 5e-6."""
+    from opticalflow_ri_tpu_torch.parallel.auto import auto_sharded_pipeline
+
+    pair = [torch.as_tensor(im, device="cuda")
+            for im in particle_image_pair(shape=(256, 384), seed=0)[:2]]
+    u, v = auto_sharded_pipeline(name, nccl_mesh, _force_sharded=True)(*pair)
+    ur, vr = run_config(name, *pair)
+    assert float(torch.hypot(u - ur, v - vr).mean()) <= 5e-6
+
+
+def test_farneback_two_levels_on_one_nccl_rank(nccl_mesh, pair):
+    from opticalflow_ri_tpu_torch.parallel import farneback_solve_sharded
+
+    z = torch.zeros_like(pair[0])
+    got = farneback_solve_sharded(nccl_mesh, *pair, z, z, pyr_levels=2)
+    want = fb.farneback_solve(*pair, z, z, pyr_levels=2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

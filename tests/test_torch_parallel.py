@@ -149,16 +149,21 @@ try:
 except ValueError:
     facts["ls_kernel_2d_mesh_raises"] = True
 
-# auto_sharded_pipeline: route 1, and route 2 raising
+# auto_sharded_pipeline: route 1, and route 2 raising where it cannot run:
+# a pyramid level that does not split (162 x 128: the coarse level has 81
+# rows), LK stripes thinner than the 38-row apron (64 x 128 on y = 2), and
+# batch=True
 fn = auto_sharded_pipeline("HS_Fs3_4", m22)
 u, v = fn(a, b)
 keep("auto_u", u, m22, yx); keep("auto_v", v, m22, yx)
-for name, batch in (("HS_Fs3_4_PyrLvls2", False), ("LK_Fs2_0", False), ("HS_Fs3_4", True)):
+odd = torch.zeros((81, 64))
+for name, batch, args in (("HS_Fs3_4_PyrLvls2", False, (odd, odd)),
+                          ("LK_Fs2_0", False, (t1, t2)), ("HS_Fs3_4", True, None)):
     try:
-        auto_sharded_pipeline(name, m22, batch=batch)
+        auto_sharded_pipeline(name, m22, batch=batch)(*args)
         facts[f"route2_{name}_{batch}"] = "ran"
-    except NotImplementedError as err:
-        facts[f"route2_{name}_{batch}"] = "ROADMAP" in str(err)
+    except (NotImplementedError, ValueError) as err:
+        facts[f"route2_{name}_{batch}"] = [type(err).__name__, str(err)]
 
 # the batch-sharded scan on a (4, 1, 1) mesh
 m411 = mesh((4, 1, 1))
@@ -573,12 +578,21 @@ def test_auto_route1_equals_port_run_config_bitwise(ranks):
     np.testing.assert_array_equal(arr("auto_v"), v.numpy())
 
 
+_ROUTE2_RAISES = {("HS_Fs3_4_PyrLvls2", False): ("ValueError", "pyramid level 1 of 2"),
+                  ("LK_Fs2_0", False): ("ValueError", "38 rows"),
+                  ("HS_Fs3_4", True): ("NotImplementedError", "batch_sharded_scan")}
+
+
 @pytest.mark.parametrize("name,batch", [("HS_Fs3_4_PyrLvls2", False), ("LK_Fs2_0", False),
                                         ("HS_Fs3_4", True)])
 def test_auto_route2_raises(ranks, name, batch):
-    """No GSPMD in PyTorch: route 2 raises, naming ROADMAP, and runs nothing
-    in its place."""
-    assert ranks[0][f"route2_{name}_{batch}"] is True
+    """Route 2 raises where it cannot run, and runs nothing in its place: a
+    pyramid level that does not split over the mesh, a tile the solve
+    refuses (no single-device fallback), and ``batch=True`` (JAX's vmapped
+    GSPMD route).  Route 2's runs: tests/test_torch_parallel_route2.py."""
+    kind, says = _ROUTE2_RAISES[(name, batch)]
+    got = ranks[0][f"route2_{name}_{batch}"]
+    assert got != "ran" and got[0] == kind and says in got[1], got
 
 
 # ---------------------------------------------------------------------------

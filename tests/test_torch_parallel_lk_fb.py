@@ -102,9 +102,11 @@ facts["fb_iterate_thin_raises"] = raises(
 facts["fb_thin_raises"] = raises(
     lambda: farneback_solve_sharded(m141, *stripes(m141, *(np.zeros((64, 64), np.float32),) * 4)),
     ValueError)
+# two levels of 128 x 64 on y = 4: the coarse level's 16-row stripes are
+# thinner than the window's 17
 facts["fb_levels2_raises"] = raises(
     lambda: farneback_solve_sharded(m141, *stripes(m141, a, b, z, z), pyr_levels=2),
-    NotImplementedError)
+    ValueError)
 
 # the single-device port on rank 0, the references of the bitwise checks
 if lead:
@@ -261,9 +263,10 @@ def test_fb_sharded_exchanges_per_level(ranks, name):
 def test_fb_shard_gating(ranks):
     """JAX's conditions: the rows split, and a stripe holds half + 1 rows of
     the window (17 at 33) and R + 1 of the sampler; a thinner stripe
-    raises ValueError, a pyramid on y = 4 NotImplementedError."""
+    raises ValueError, at every level of a pyramid (the coarse level named;
+    a pyramid that fits runs: tests/test_torch_parallel_route2.py)."""
     facts, _ = ranks
     assert facts["fb_supported"] == [True, False, False]
     assert facts["fb_supported_small_window"] is True
     assert facts["fb_iterate_thin_raises"] and facts["fb_thin_raises"]
-    assert facts["fb_levels2_raises"] and "ROADMAP" in facts["fb_levels2_raises"]
+    assert facts["fb_levels2_raises"] and "level 1 (scale 0.5)" in facts["fb_levels2_raises"]
