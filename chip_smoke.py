@@ -115,13 +115,20 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                ``run_config`` on the card (AEE <= 5e-6, bit for bit
                named), checks that it launched exactly the configuration's
                kernels, and prints its exchanges, gathers and launches and
-               its event and host ms beside the eager call's.  A failed
-               rank stops the group and fails the phase.  Before the
-               groups, K3's caller-padded mode is held against its plain
-               version and the whole-image kernel cropped, bit for bit,
-               under all 16 side combinations at 47x61, 333x517 and the
-               ranks' 1024^2 tiles of 2048^2 (``warp_padded_parity``), and
-               timed beside the whole-image call (``warp_padded_ms``).
+               its event and host ms beside the eager call's.  Every rank
+               then runs the configuration again (not counted) with each
+               kernel call also run through its plain version on copies
+               of the same inputs, bit for bit
+               (``kernels_against_plain``): the kernels are held at
+               exactly the tiles, stripes, masks, aprons and step counts
+               route 2 gives them, at both sizes and both levels.  A
+               failed rank stops the group and fails the phase.  Before
+               the groups, K3's caller-padded mode is held against its
+               plain version and the whole-image kernel cropped, bit for
+               bit, under all 16 side combinations at 47x61, 333x517 and
+               the ranks' 256^2 and 1024^2 tiles of 512^2 and 2048^2
+               (``warp_padded_parity``), and timed beside the whole-image
+               call (``warp_padded_ms``).
 
 A configuration whose graph replay is not bit for bit the eager result is
 named with its difference and must stay within the whole-pipeline bar (AEE
@@ -135,6 +142,7 @@ PyTorch call computes the kernel's function).  Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -593,10 +601,10 @@ def warp_padded_parity(rand) -> float:
     """K3 in its caller-padded mode (the sharded pyramid's warp) against its
     plain version and against the whole-image kernel cropped to the tile,
     bit for bit, under all 16 combinations of border and interior sides:
-    tiles of 47x61 and 333x517 images, and the (1, 2, 2) ranks' 1024^2
-    tiles of the 2048^2 image (an interior side at 1024 rows or columns; a
-    side pair that is all border spans the image), calibrated (|d| <= 4)
-    and wild (|d| <= 12, beyond R = 8) flows.  Each tile's images are cut
+    tiles of 47x61 and 333x517 images, and the (1, 2, 2) ranks' 256^2 and
+    1024^2 tiles of the 512^2 and 2048^2 images (an interior side at the
+    middle row or column; a side pair that is all border spans the image),
+    calibrated (|d| <= 4) and wild (|d| <= 12, beyond R = 8) flows.  Each tile's images are cut
     from the image padded by R cells in mode "nearest", as the exchange
     gives them.  Returns the largest difference (0 when bit for bit)."""
     import itertools
@@ -609,13 +617,13 @@ def warp_padded_parity(rand) -> float:
     a, worst, bad = 8, 0.0, []
 
     def spans(n, lo_border, hi_border):
-        if n >= 2048:   # the ranks' halves, or the middle half
+        if n in (512, PARALLEL_SHAPE[0]):   # the ranks' halves, or the middle half
             return {(True, True): (0, n), (True, False): (0, n // 2),
                     (False, True): (n // 2, n), (False, False): (n // 4, 3 * n // 4)}[
                         (lo_border, hi_border)]
         return (0 if lo_border else n // 4, n if hi_border else n - n // 5)
 
-    for shape in [(47, 61), (333, 517), PARALLEL_SHAPE]:
+    for shape in [(47, 61), (333, 517), (512, 512), PARALLEL_SHAPE]:
         h, w = shape
         for fname, dmax in (("calibrated |d|<=4", 4.0), ("wild |d|<=12", 12.0)):
             ims = [rand(shape, 0, 255) for _ in range(2)]
@@ -638,7 +646,8 @@ def warp_padded_parity(rand) -> float:
             del ims, flows, whole, padded
     torch.cuda.synchronize()
     print(f"warp_pair caller-padded mode (apron {a}), 16 side combinations at 47x61, 333x517 "
-          f"and the ranks' 1024^2 tiles of {PARALLEL_SHAPE[0]}^2, calibrated and wild flows: "
+          f"and the ranks' 256^2 and 1024^2 tiles of 512^2 and {PARALLEL_SHAPE[0]}^2, calibrated "
+          f"and wild flows: "
           f"max|d| {worst} against its plain version and the whole-image kernel cropped "
           f"(bar: bitwise) failures {bad or 'none'}", flush=True)
     if bad:
@@ -720,6 +729,89 @@ def stripe_mode_ms(dev, rand, fb_expansions, device_ms) -> dict:
     out["fb_blur5_flow gaussian 33, whole"] = device_ms(
         lambda: fb_blur.blur5_flow(mw, taps, mode, scale), 50)
     return out
+
+
+@contextlib.contextmanager
+def kernels_against_plain(swaps: dict, record: dict):
+    """While active, every call of a kernel wrapper named in ``swaps``
+    ({name: (module, attribute)}, the attribute the path calls) launches
+    the kernel as the path does and also runs the wrapper's plain version
+    on copies of the same inputs, made before the kernel ran, and holds the
+    two bit for bit (NaN equal to NaN; Liu-Shen's u, v and k, as
+    ``masked_parity``: its err is not read without the stop).  So the
+    kernels are checked at exactly the shapes, masks, aprons and step
+    counts of the calls a run makes.  ``record[name]`` gathers the calls,
+    their distinct (shape, arguments) signatures and the largest
+    difference; a disagreement raises when the context ends."""
+    import torch
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(y) for y in x)
+        return x
+
+    def outputs(x):
+        return list(x) if isinstance(x, (tuple, list)) else [x]
+
+    def shape_of(a):
+        if isinstance(a, (tuple, list)) and a and isinstance(a[0], torch.Tensor):
+            a = a[0]   # Liu-Shen's fields
+        return tuple(a.shape) if isinstance(a, torch.Tensor) else None
+
+    def label(args, kw):
+        shapes = [shape_of(a) for a in args if shape_of(a)]
+        rest = [f"array{a.shape}" if isinstance(a, np.ndarray) else a for a in args
+                if shape_of(a) is None]
+        return f"{shapes[0]} {rest}" + (f" {kw}" if kw else "")
+
+    bad = []
+
+    def checking(name, wrapper, plain):
+        def run(*args, **kw):
+            copies, kw_copies = clone(args), {k: clone(v) for k, v in kw.items()}
+            got = wrapper(*args, **kw)
+            want = plain(*copies, **kw_copies)
+            rec = record.setdefault(name, {"calls": 0, "max_abs_diff": 0.0, "signatures": []})
+            rec["calls"] += 1
+            sig = label(args, kw)
+            if sig not in rec["signatures"]:
+                rec["signatures"].append(sig)
+            pairs = list(zip(outputs(got), outputs(want)))
+            if name == "liu_shen":
+                pairs = [pairs[0], pairs[1], pairs[3]]
+            for g, w in pairs:
+                if not isinstance(g, torch.Tensor):
+                    ok, d = g == w, 0.0
+                elif g.shape != w.shape:
+                    ok, d = False, float("inf")
+                else:
+                    same_nan = torch.equal(torch.isnan(g), torch.isnan(w))
+                    gz, wz = torch.nan_to_num(g, 0.0), torch.nan_to_num(w, 0.0)
+                    ok = same_nan and torch.equal(gz, wz)
+                    d = float((gz.double() - wz.double()).abs().max()) if g.numel() else 0.0
+                rec["max_abs_diff"] = max(rec["max_abs_diff"], d)
+                if not ok:
+                    bad.append((name, sig, d))
+            del copies, kw_copies, want
+            return got
+        # the wrapper counts its launches on the module's attribute, which
+        # is ``run`` while this context holds: a copy of its attributes
+        # takes them, and the path's own counts stay as they were
+        return functools.update_wrapper(run, wrapper)
+
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in swaps.items()}
+    for name, (mod, attr) in swaps.items():
+        setattr(mod, attr, checking(name, saved[name], getattr(mod, attr + "_plain")))
+    try:
+        yield record
+    finally:
+        for name, (mod, attr) in swaps.items():
+            setattr(mod, attr, saved[name])
+    if bad:
+        raise AssertionError(f"route 2's kernel calls disagree with their plain versions: "
+                             f"{bad[:8]}")
 
 
 def rank_main(argv) -> None:
@@ -1013,6 +1105,11 @@ def rank_main(argv) -> None:
     # before each run and read just after
     route2_wrappers = {"hs_jacobi": hs_iter.hs_iterate, "warp_pair": warp_tent.warp_pair,
                        "liu_shen": liu_shen_iter.liu_shen_iterate, **path_wrappers}
+    route2_swaps = {"hs_jacobi": (hs_iter, "hs_iterate"), "warp_pair": (warp_tent, "warp_pair"),
+                    "liu_shen": (liu_shen_iter, "liu_shen_iterate"),
+                    "lk_build": (lk_build, "lk_build_planes"), "lk_gn": (lk_iter, "lk_gn_iterate"),
+                    "fb_update_matrices": (tent_sample, "update_matrices"),
+                    "fb_blur5_flow": (blur5_flow, "blur5_flow")}
 
     def route2_counts(call):
         for wrapper in route2_wrappers.values():
@@ -1033,6 +1130,15 @@ def rank_main(argv) -> None:
             fn2 = auto_sharded_pipeline(name, m_r2, _force_sharded=one)
             (u, v), used = route2_counts(lambda: fn2(*t2))
             u, v = (distributed.gather_global(m_r2, t, spec) for t in (u, v))
+            # the same run again (not counted), each kernel call held against
+            # its plain version at this rank's own shapes; all ranks' records
+            # to rank 0
+            record = {}
+            with kernels_against_plain(route2_swaps, record):
+                fn2(*t2)
+            torch.cuda.empty_cache()
+            records = [None] * world
+            torch.distributed.all_gather_object(records, record)
             t_r2 = timed(lambda: fn2(*t2), reps=3)
             if lead:
                 ref = run_config(name, *p2)
@@ -1046,6 +1152,14 @@ def rank_main(argv) -> None:
                        "kernels": sorted(launched), "mesh": list(m_r2.shape),
                        "route2_ms": t_r2[0], "route2_host_ms": t_r2[1], "eager_ms": t_1[0],
                        "eager_host_ms": t_1[1], **used})
+                report({"route2_plain": name, "size": size, "kernels": {
+                    k: {"calls": sum(r.get(k, {}).get("calls", 0) for r in records),
+                        "max_abs_diff": max(r.get(k, {}).get("max_abs_diff", 0.0)
+                                            for r in records),
+                        "signatures": sorted({sig for r in records
+                                              for sig in r.get(k, {}).get("signatures", [])})}
+                    for k in sorted(set().union(*records))},
+                    "bar": "bitwise, every call of every rank"})
                 del ref
             del u, v
         del t2
@@ -2116,6 +2230,22 @@ def main() -> None:
             raise AssertionError(f"route 2 did not run every configuration, or a kernel of its "
                                  f"path was not launched, in both groups: runs {route2_runs}, "
                                  f"launches {route2_launches}")
+        # every kernel of route 2's path held against its plain version at
+        # every call of every rank's checked runs, in both groups
+        route2_plain = {name: {} for name in ROUTE2_KERNELS}
+        for group, glines in (("nccl_1_rank", nccl_lines), ("gloo_4_ranks", lines)):
+            for rec in (json.loads(line) for line in glines if line.startswith("{")):
+                for name, per in rec.get("kernels", {}).items() if "route2_plain" in rec else ():
+                    got = route2_plain[name].setdefault(group, {"calls": 0, "max_abs_diff": 0.0,
+                                                                "signatures": 0})
+                    got["calls"] += per["calls"]
+                    got["signatures"] += len(per["signatures"])
+                    got["max_abs_diff"] = max(got["max_abs_diff"], per["max_abs_diff"])
+        if any(len(per) != 2 or min(g["calls"] for g in per.values()) < 1
+               or max(g["max_abs_diff"] for g in per.values()) != 0.0
+               for per in route2_plain.values()):
+            raise AssertionError(f"a kernel of route 2's path was not held against its plain "
+                                 f"version in both groups, or differed: {route2_plain}")
         runner = [json.loads(line) for line in lines if '"runner"' in line]
         if not runner:
             raise AssertionError("the four-rank group reported no runner result")
@@ -2137,6 +2267,7 @@ def main() -> None:
                           "sharded_launches": sharded_launches,
                           "warp_padded_max_abs_diff": padded_warp_err,
                           "route2_launches": route2_launches, "route2_runs": route2_runs,
+                          "route2_plain": route2_plain,
                           "nccl_1_rank_s": t1 - t0, "gloo_4_ranks_s": t2 - t1, "gpu": gpu}),
               flush=True)
     finally:
@@ -2186,6 +2317,10 @@ def main() -> None:
             kern["padded_max_abs_err"] = padded_warp_err
         if name in route2_launches:
             kern["route2_launches"] = route2_launches[name]
+            kern["route2_max_abs_err"] = max(g["max_abs_diff"]
+                                             for g in route2_plain[name].values())
+            kern["route2_checked_calls"] = {g: per["calls"]
+                                            for g, per in route2_plain[name].items()}
         kernels.append(kern)
     for kern in kernels:
         if kern["launches"] < 1:

@@ -220,23 +220,6 @@ def farneback_solve(im1, im2, u0, v0, window_size=33, n_iters=5, poly_n=7,
     return prev
 
 
-def _farneback_sharded(mesh, im1, im2, u0, v0, **kw):
-    """The rows-sharded Farneback solve on this rank's ("y", "x") tiles (JAX
-    ``models/farneback.py:571-600``): (fx, fy) of its tile."""
-    from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
-    from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
-
-    w = im1.shape[-1]
-    stripes = sk.to_stripes(mesh, im1, im2, u0, v0)
-    shape = (stripes[0].shape[-2] * axis_size(mesh, "y"), stripes[0].shape[-1])
-    if not sk.fb_shard_supported(mesh, shape, kw["window_size"]):
-        raise ValueError(
-            f"Farneback on a mesh: the stripes {tuple(stripes[0].shape)} of {shape} on y = "
-            f"{axis_size(mesh, 'y')} are refused; a stripe needs "
-            f"{max(kw['window_size'] // 2 + 1, 6)} rows")
-    return sk.from_stripes(mesh, w, *sk.farneback_solve_sharded(mesh, *stripes, **kw))
-
-
 class FarnebackAdapter:
     """Driver adapter with the reference constructor surface
     (ref: src/Farneback_PyCL.py:65-122)."""
@@ -262,14 +245,15 @@ class FarnebackAdapter:
         from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
 
         mesh = current_kernel_shard()
-        solve = farneback_solve if mesh is None else (
-            lambda *args, **kw: _farneback_sharded(mesh, *args, **kw))
-        fx, fy = solve(
-            im1, im2, U, V, window_size=self.windowSize, n_iters=self.numIters,
-            poly_n=self.polyN, poly_sigma=float(self.polySigma),
-            use_gaussian=self.useGaussianFilter, pyr_scale=float(self.pyrScale),
-            pyr_levels=self.pyramidalLevels,
-        )
+        kw = dict(window_size=self.windowSize, n_iters=self.numIters, poly_n=self.polyN,
+                  poly_sigma=float(self.polySigma), use_gaussian=self.useGaussianFilter,
+                  pyr_scale=float(self.pyrScale), pyr_levels=self.pyramidalLevels)
+        if mesh is None:
+            fx, fy = farneback_solve(im1, im2, U, V, **kw)
+        else:
+            from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
+
+            fx, fy = sk.on_stripes(mesh, sk.farneback_solve_sharded, im1, im2, U, V, **kw)
         # the reference reports no numeric error from this solver (:602)
         return fx, fy, "Unknown"
 

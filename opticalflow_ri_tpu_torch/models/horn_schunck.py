@@ -46,24 +46,6 @@ def hs_solve(im1, im2, alpha, niter: int, u0, v0):
     return u, v, err
 
 
-def _hs_sharded(mesh, im1, im2, alpha, niter, u0, v0):
-    """The kernel-sharded HS solve on this rank's ("y", "x") tiles (JAX
-    ``models/horn_schunck.py:140-165``); raises where the tiles cannot take
-    the kernel's T-block."""
-    from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
-    from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
-
-    my, mx = axis_size(mesh, "y"), axis_size(mesh, "x")
-    shape = (im1.shape[-2] * my, im1.shape[-1] * mx)
-    t = sk.pick_hs_shard_t(mesh, shape)
-    if t is None:
-        raise ValueError(
-            f"Horn-Schunck on a mesh: the tiles {tuple(im1.shape)} of {shape} on (y, x) = "
-            f"({my}, {mx}) are refused; the kernel-sharded solve needs tiles of at least "
-            f"{hs_iter.STEPS_PER_LAUNCH + 2} cells a side")
-    return sk.hs_solve_sharded_kernel(mesh, im1, im2, alpha, niter, u0, v0, t_block=t)
-
-
 class HSOpticalFlowAlgoAdapter:
     """Driver adapter with the reference's protocol and alpha-list state."""
 
@@ -77,9 +59,11 @@ class HSOpticalFlowAlgoAdapter:
         from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
 
         mesh = current_kernel_shard()
-        if mesh is not None:
-            return _hs_sharded(mesh, im1, im2, float(alpha), self.Niter, U, V)
-        return hs_solve(im1, im2, float(alpha), self.Niter, U, V)
+        if mesh is None:
+            return hs_solve(im1, im2, float(alpha), self.Niter, U, V)
+        from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
+
+        return sk.hs_solve_sharded_kernel(mesh, im1, im2, float(alpha), self.Niter, U, V)
 
     def getAlgoName(self):
         return "Horn-Schunck"

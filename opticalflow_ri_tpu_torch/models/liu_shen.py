@@ -89,26 +89,6 @@ def liu_shen_solve(im1, im2, h, u0, v0, max_iter: int = 60, tol: float = 1e-8):
     return u, v, err
 
 
-def _liu_shen_sharded(mesh, im1, im2, h, u0, v0):
-    """The rows-sharded Liu-Shen kernel solve on this rank's ("y", "x")
-    tiles (JAX ``models/liu_shen.py:206-228``); (u, v, err) in the solver's
-    component order, as ``liu_shen_solve``."""
-    from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
-    from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
-
-    w = im1.shape[-1]
-    a, b, u0, v0 = sk.to_stripes(mesh, im1, im2, u0, v0)
-    shape = (a.shape[-2] * axis_size(mesh, "y"), a.shape[-1])
-    t = sk.pick_ls_shard_t(mesh, shape)
-    if t is None:
-        raise ValueError(
-            f"Liu-Shen on a mesh: the stripes {tuple(a.shape)} of {shape} on y = "
-            f"{axis_size(mesh, 'y')} are refused; the kernel-sharded solve needs stripes of "
-            f"more than 4 rows")
-    u, v, err = sk.liu_shen_solve_sharded_kernel(mesh, a, b, h, u0, v0, t_block=t)
-    return (*sk.from_stripes(mesh, w, u, v), err)
-
-
 class LiuShenOpticalFlowAlgoAdapter:
     """Driver adapter; swaps flow components in and out like the reference."""
 
@@ -119,9 +99,13 @@ class LiuShenOpticalFlowAlgoAdapter:
         from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
 
         mesh = current_kernel_shard()
-        solve = liu_shen_solve if mesh is None else (
-            lambda *args: _liu_shen_sharded(mesh, *args))
-        rv, ru, err = solve(im1, im2, float(self.alpha), V, U)
+        if mesh is None:
+            rv, ru, err = liu_shen_solve(im1, im2, float(self.alpha), V, U)
+        else:
+            from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
+
+            rv, ru, err = sk.on_stripes(mesh, sk.liu_shen_solve_sharded_kernel, im1, im2,
+                                        float(self.alpha), V, U)
         return [ru, rv, err]
 
     def getAlgoName(self):

@@ -334,24 +334,6 @@ def evaluate_vorticity_asym(u, v, enable: bool, mesh=None):
     return (0, 0, 0, 0)
 
 
-def _lk_sharded(mesh, im1, im2, u0, v0, half_window, n_iter, asym, max_shift):
-    """The rows-sharded LK kernel solve on this rank's ("y", "x") tiles (JAX
-    ``models/lucas_kanade.py:499-525``): (u, v) of its tile."""
-    from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
-    from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
-
-    w = im1.shape[-1]
-    stripes = sk.to_stripes(mesh, im1, im2, u0, v0)
-    shape = (stripes[0].shape[-2] * axis_size(mesh, "y"), stripes[0].shape[-1])
-    if sk.pick_lk_shard_stripe(mesh, shape, half_window, max_shift) is None:
-        raise ValueError(
-            f"dense LK on a mesh: the stripes {tuple(stripes[0].shape)} of {shape} on y = "
-            f"{axis_size(mesh, 'y')} are refused; a stripe needs {lk_pad(max_shift)} rows")
-    u, v, _ = sk.lk_solve_sharded_kernel(mesh, *stripes, half_window=half_window,
-                                         n_iter=n_iter, asym=asym, max_shift=max_shift)
-    return sk.from_stripes(mesh, w, u, v)
-
-
 class DenseLucasKanadeAdapter:
     """Driver adapter with the reference host API
     (ref: src/denseLucasKanade_PyCL.py:33-182)."""
@@ -379,8 +361,11 @@ class DenseLucasKanadeAdapter:
             if self.computeErrorMap:
                 raise ValueError("computeErrorMap=True on a mesh: the error map is a "
                                  "single-device opt-in (its SAD pass has no sharded form)")
-            u, v = _lk_sharded(mesh, im1, im2, U, V, self.halfWindow, self.Niter, asym,
-                               self.max_shift)
+            from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
+
+            u, v, _ = sk.on_stripes(mesh, sk.lk_solve_sharded_kernel, im1, im2, U, V,
+                                    half_window=self.halfWindow, n_iter=self.Niter, asym=asym,
+                                    max_shift=self.max_shift)
             return u, v, True
         out = lk_dense_solve(
             im1, im2, U, V, half_window=self.halfWindow, n_iter=self.Niter, asym=asym,

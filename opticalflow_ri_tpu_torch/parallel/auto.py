@@ -51,7 +51,7 @@ def _hs_config_kernel_sharded(name: str, mesh):
     kernel-sharded HS solve from zero flow (the reference pipeline at
     pyramidalLevels=1)."""
     from opticalflow_ri_tpu_torch.configs import build_config
-    from opticalflow_ri_tpu_torch.parallel.sharded import _prefilter_local
+    from opticalflow_ri_tpu_torch.parallel.sharded_glue import prefilter_sharded
     from opticalflow_ri_tpu_torch.parallel.sharded_kernel import _hs_body_shardkernel
 
     cfg = build_config(name)
@@ -68,8 +68,8 @@ def _hs_config_kernel_sharded(name: str, mesh):
             raise ValueError(f"{name}: tiles {tuple(a.shape)} of {shape} are too small for the "
                              f"kernel-sharded solve")
         if sigma > 1e-3:
-            a = _prefilter_local(a, sigma, 3, mesh)
-            b = _prefilter_local(b, sigma, 3, mesh)
+            a = prefilter_sharded(a, sigma, 3, mesh)
+            b = prefilter_sharded(b, sigma, 3, mesh)
         z = torch.zeros_like(a)
         u, v, _ = _hs_body_shardkernel(a, b, z, z, mesh, alpha=alpha, niter=niter, t_block=t)
         return u, v

@@ -25,9 +25,9 @@ import numpy as np
 import torch
 
 from opticalflow_ri_tpu_torch.models import liu_shen as ls
-from opticalflow_ri_tpu_torch.ops.gaussian import prepare_gaussian_kernel
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3_padded, hs_avg3x3_padded
 from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, reduce_over
+from opticalflow_ri_tpu_torch.parallel.sharded_glue import prefilter_sharded
 
 _SPATIAL = ("y", "x")
 
@@ -240,26 +240,6 @@ def liu_shen_solve_sharded(mesh, im1, im2, h_reg, u0, v0, max_iter=60, impl: str
 # Batched end-to-end pipeline (dp over 'batch' + 2-D spatial decomposition)
 # ---------------------------------------------------------------------------
 
-def _prefilter_local(im, sigma, ksize, mesh):
-    """The calibrated Gaussian on local tiles: rows then columns, every tap
-    added in ``ops.stencil.separable_correlate``'s order, symmetric halos."""
-    kernel = prepare_gaussian_kernel(sigma, ksize)
-    half = ksize // 2
-    p = exchange_halo(im, ((0, 0), (half, half)), "symmetric", mesh)
-    w = im.shape[-1]
-    out = None
-    for j in range(ksize):
-        t = p[..., :, j : j + w] * float(kernel[j])
-        out = t if out is None else out + t
-    p = exchange_halo(out, ((half, half), (0, 0)), "symmetric", mesh)
-    h = im.shape[-2]
-    out2 = None
-    for i in range(ksize):
-        t = p[..., i : i + h, :] * float(kernel[i])
-        out2 = t if out2 is None else out2 + t
-    return out2
-
-
 def batched_hs_pipeline(mesh, im1, im2, alpha=21.0, niter=10, filter_sigma=3.4,
                         impl: str = "auto"):
     """One full flow step on a batch of image pairs: calibrated pre-filter +
@@ -269,8 +249,8 @@ def batched_hs_pipeline(mesh, im1, im2, alpha=21.0, niter=10, filter_sigma=3.4,
     per local pair.  The kernel path runs the pairs one after another."""
     im1, im2 = _f32(im1, im2)
     if filter_sigma > 1e-3:
-        im1 = _prefilter_local(im1, filter_sigma, 3, mesh)
-        im2 = _prefilter_local(im2, filter_sigma, 3, mesh)
+        im1 = prefilter_sharded(im1, filter_sigma, 3, mesh)
+        im2 = prefilter_sharded(im2, filter_sigma, 3, mesh)
     z = torch.zeros_like(im1)
     if _pick(impl, im1) == "body":
         return _hs_body(im1, im2, z, z, mesh, alpha=alpha, niter=int(niter))

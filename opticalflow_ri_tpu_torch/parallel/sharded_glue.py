@@ -4,10 +4,10 @@ pyramid (``auto_sharded_pipeline``'s route 2).
 
 The JAX package traces the pyramid once and GSPMD partitions its resize,
 warp and pre-filter ops across the mesh.  PyTorch has no partitioner, so
-each op has a tile form here, chosen by ``pyramid.py`` while
-``context.kernel_sharded_solvers`` holds a mesh (``pyramid.py``).  Every
-function takes and returns this rank's ("y", "x") tiles; every rank of the
-mesh calls it with tiles of one shape.
+each op has a tile form here; ``TileGlue`` binds them to a mesh, and
+``pyramid.py`` runs on it while ``context.kernel_sharded_solvers`` holds
+one.  Every function takes and returns this rank's ("y", "x") tiles;
+every rank of the mesh calls it with tiles of one shape.
 
   * ``pil_resize_sharded``: Pillow's matrix is banded.  Each rank exchanges
     the band's apron once (both axes, zeros beyond the image, whose weights
@@ -24,8 +24,8 @@ mesh calls it with tiles of one shape.
   * ``symmetric_warp_pair_sharded``: an apron of ``max_shift`` cells of
     both images (mode "nearest"), then K3 in its caller-padded mode, which
     equals the whole-image warp cropped to the tile bit for bit.
-  * the pre-filters are ``sharded._prefilter_local`` (route 1's), bit for
-    bit the single-device ones.
+  * ``prefilter_sharded`` (route 1's too): the calibrated Gaussian with
+    symmetric halos, bit for bit the single-device one.
 
 A matmul over a sliced or gathered K need not add in the single-device
 order, so a resize on tiles may differ from the whole-image one in the last
@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
+from opticalflow_ri_tpu_torch.ops.gaussian import prepare_gaussian_kernel
 from opticalflow_ri_tpu_torch.ops.resize import pil_resize_matrix, spline_resize_matrix
 from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, gather_axis
 from opticalflow_ri_tpu_torch.parallel.mesh import axis_index, axis_size
@@ -163,6 +164,26 @@ def symmetric_warp_pair_sharded(im1: torch.Tensor, im2: torch.Tensor, u: torch.T
                                img_h=img_h, img_w=img_w)
 
 
+def prefilter_sharded(im, sigma, ksize, mesh):
+    """``ops.gaussian.gaussian_filter_px`` on this rank's tiles, bit for bit: rows then columns, every tap
+    added in ``ops.stencil.separable_correlate``'s order, symmetric halos."""
+    kernel = prepare_gaussian_kernel(sigma, ksize)
+    half = ksize // 2
+    p = exchange_halo(im, ((0, 0), (half, half)), "symmetric", mesh)
+    w = im.shape[-1]
+    out = None
+    for j in range(ksize):
+        t = p[..., :, j : j + w] * float(kernel[j])
+        out = t if out is None else out + t
+    p = exchange_halo(out, ((half, half), (0, 0)), "symmetric", mesh)
+    h = im.shape[-2]
+    out2 = None
+    for i in range(ksize):
+        t = p[..., i : i + h, :] * float(kernel[i])
+        out2 = t if out2 is None else out2 + t
+    return out2
+
+
 def liu_shen_warp_sharded(im1, u, v, mesh):
     """``ops.warp.liu_shen_warp`` scatters by the flow with wrap-around: not
     ported to tiles (ROADMAP.md, Queue 1).  Raises on a mesh of more than
@@ -174,3 +195,33 @@ def liu_shen_warp_sharded(im1, u, v, mesh):
     from opticalflow_ri_tpu_torch.ops.warp import liu_shen_warp
 
     return liu_shen_warp(im1, u, v)
+
+
+class TileGlue:
+    """The functions above bound to ``mesh``, with the interface of
+    ``pyramid.py``'s single-device glue (``pyramid.DEVICE_GLUE``): the
+    driver picks one of the two once a run."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def shape(self, tile_shape) -> tuple:
+        return global_shape(tile_shape, self.mesh)
+
+    def check_splits(self, shape, what: str) -> None:
+        check_splits(shape, self.mesh, what)
+
+    def resize(self, tile, out_global_hw, method):
+        return pil_resize_sharded(tile, out_global_hw, method, self.mesh)
+
+    def upsample(self, tile, out_global_hw):
+        return spline_upsample_sharded(tile, out_global_hw, self.mesh)
+
+    def warp_pair(self, im1, im2, u, v):
+        return symmetric_warp_pair_sharded(im1, im2, u, v, self.mesh)
+
+    def warp(self, im1, u, v):
+        return liu_shen_warp_sharded(im1, u, v, self.mesh)
+
+    def prefilter(self, im, sigma, ksize):
+        return prefilter_sharded(im, sigma, ksize, self.mesh)

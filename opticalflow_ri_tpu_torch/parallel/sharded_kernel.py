@@ -92,20 +92,24 @@ def _crop(zp, h, w, t, apron):
     return zp[..., r : r + h, c : c + w]
 
 
-def to_stripes(mesh, *tiles) -> list:
-    """("y", "x") tiles to the ("y", None) stripes the rows-only solvers
-    take: one gather along x for all of them (GSPMD's all-gather for JAX's
-    ``in_specs=P("y", None)``).  A mesh with x = 1 moves nothing."""
-    if axis_size(mesh, "x") == 1:
-        return [t.to(torch.float32) for t in tiles]
-    return list(gather_axis(torch.stack([t.to(torch.float32) for t in tiles]), mesh, "x",
-                            -1).unbind(0))
-
-
-def from_stripes(mesh, w: int, *stripes) -> list:
-    """This rank's x block, ``w`` columns wide, of each stripe."""
+def on_stripes(mesh, solve, *args, **kw) -> list:
+    """``solve``, a rows-only solver on ("y", None) stripes, on this rank's
+    ("y", "x") tiles: the tensor arguments gathered along x into stripes
+    with one gather for all of them (GSPMD's all-gather for JAX's
+    ``in_specs=P("y", None)``; a mesh with x = 1 moves nothing), the solve,
+    then the rank's x block of each output field.  A scalar output (an
+    err) is returned as it is."""
+    at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+    w = args[at[0]].shape[-1]
+    tiles = [args[i].to(torch.float32) for i in at]
+    if axis_size(mesh, "x") > 1:
+        tiles = gather_axis(torch.stack(tiles), mesh, "x", -1).unbind(0)
+    args = list(args)
+    for i, stripe in zip(at, tiles):
+        args[i] = stripe
     c0 = axis_index(mesh, "x") * w
-    return [z[..., c0:c0 + w].contiguous() for z in stripes]
+    return [z[..., c0:c0 + w].contiguous() if z.dim() >= 2 else z
+            for z in solve(mesh, *args, **kw)]
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +162,7 @@ def hs_solve_sharded_kernel(mesh, im1, im2, alpha, niter, u0, v0, t_block: int |
     h_loc, w_loc = im1.shape[-2], im1.shape[-1]
     if not hs_shard_kernel_supported(h_loc, w_loc, t):
         raise ValueError(f"hs kernel-sharded path unsupported for local tile ({h_loc}, {w_loc}), "
-                         f"t_block {t}")
+                         f"t_block {t}: a tile needs at least {t + 2} cells a side")
     im1, im2, u0, v0 = _sh._f32(im1, im2, u0, v0)
     return _hs_body_shardkernel(im1, im2, u0, v0, mesh, alpha=alpha, niter=int(niter),
                                 t_block=t)
@@ -243,7 +247,8 @@ def liu_shen_solve_sharded_kernel(mesh, im1, im2, h_reg, u0, v0, max_iter=60, to
          else int(t_block))
     if t is None or not ls_shard_kernel_supported(h_loc, w, t):
         raise ValueError(f"ls kernel-sharded path unsupported for local stripe ({h_loc}, {w}), "
-                         f"t_block {t}")
+                         f"t_block {t}: a stripe needs more than {t or 4} rows and at least 2 "
+                         f"columns")
     im1, im2, u0, v0 = _sh._f32(im1, im2, u0, v0)
     return _ls_body_shardkernel(im1, im2, u0, v0, mesh, h_reg=h_reg, max_iter=int(max_iter),
                                 tol=tol, t_block=t)
@@ -352,7 +357,8 @@ def farneback_iterate_sharded(mesh, r0, r1, fx, fy, window_size: int, use_gaussi
     my = axis_size(mesh, "y")
     if not fb_shard_supported(mesh, (h_loc * my, w), window_size, R):
         raise ValueError(f"fb kernel-sharded path unsupported for local stripe ({h_loc}, {w}) "
-                         f"on y = {my}, window {window_size}, R {R}")
+                         f"on y = {my}, window {window_size}, R {R}: a stripe needs "
+                         f"{max(window_size // 2 + 1, R + 1)} rows")
     taps, mode, scale = fb._window_blur_spec(window_size, use_gaussian)
     half = len(taps) // 2
     edges, apron = _border_sides(mesh, _Y_ONLY)

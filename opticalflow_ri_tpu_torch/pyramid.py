@@ -15,9 +15,10 @@ Adapters follow the reference protocol: ``compute(im1, im2, U, V) ->
 
 While ``parallel.context.kernel_sharded_solvers(mesh)`` is active (route 2
 of ``parallel.auto.auto_sharded_pipeline``) the images are this rank's
-("y", "x") tiles: the glue runs in its tile form
-(``parallel/sharded_glue.py``) on the global level shapes worked out from
-the tile and the mesh, and the adapters run their kernel-sharded solves.
+("y", "x") tiles: the driver picks the tile glue once a run
+(``parallel/sharded_glue.py:TileGlue``, on the global level shapes worked
+out from the tile and the mesh), and the adapters run their kernel-sharded
+solves.
 Outside the context every call is the single-device one.
 
 Tensor inputs stay on their device; numpy inputs go to ``device`` (default
@@ -58,66 +59,66 @@ def _log_error(adapter, error) -> None:
         log.info("%s estimated error for image registration: %s", adapter.getAlgoName(), error)
 
 
-def _tile_mesh():
-    """The mesh of an active ``kernel_sharded_solvers`` context, or None.
-    Imported at call time: ``parallel`` imports the models, which the
-    importers of this module import first."""
+class _DeviceGlue:
+    """The single-device glue: the ops of ``ops/resize.py``, ``ops/warp.py``
+    and ``ops/gaussian.py`` on whole images.  ``parallel.sharded_glue.
+    TileGlue`` has the same interface on this rank's tiles."""
+
+    @staticmethod
+    def shape(shape) -> tuple:
+        return int(shape[-2]), int(shape[-1])
+
+    @staticmethod
+    def check_splits(shape, what: str) -> None:
+        pass
+
+    resize = staticmethod(pil_resize)
+    upsample = staticmethod(spline_upsample)
+    warp_pair = staticmethod(symmetric_warp_pair)
+    warp = staticmethod(liu_shen_warp)
+    prefilter = staticmethod(gaussian_filter_px)
+
+
+DEVICE_GLUE = _DeviceGlue()
+
+
+def _pick_glue():
+    """The glue of this run: the tile glue bound to the mesh of an active
+    ``kernel_sharded_solvers`` context, else ``DEVICE_GLUE``.  ``parallel``
+    is imported at call time: it imports the models, which the importers of
+    this module import first."""
     from opticalflow_ri_tpu_torch.parallel.context import current_kernel_shard
 
-    return current_kernel_shard()
-
-
-def _glue():
-    from opticalflow_ri_tpu_torch.parallel import sharded_glue
-
-    return sharded_glue
-
-
-def _shape(im, mesh) -> tuple:
-    """The (H, W) of the image: the tile's global shape on a mesh."""
+    mesh = current_kernel_shard()
     if mesh is None:
-        return im.shape[-2], im.shape[-1]
-    return _glue().global_shape(im.shape, mesh)
+        return DEVICE_GLUE
+    from opticalflow_ri_tpu_torch.parallel.sharded_glue import TileGlue
+
+    return TileGlue(mesh)
 
 
-def _prefilter(im, sigma, ksize, mesh):
-    if mesh is None:
-        return gaussian_filter_px(im, sigma, ksize)
-    from opticalflow_ri_tpu_torch.parallel.sharded import _prefilter_local
-
-    return _prefilter_local(im, sigma, ksize, mesh)
-
-
-def _imresize_bicubic(im, scale):
+def _imresize_bicubic(im, scale, glue=DEVICE_GLUE):
     """PIL-convention size rounding (``pyramid.py:34-38``)."""
-    mesh = _tile_mesh()
-    in_h, in_w = _shape(im, mesh)
+    in_h, in_w = glue.shape(im.shape)
     out_w = int(np.round(in_w * scale))
     out_h = int(np.round(in_h * scale))
-    if mesh is None:
-        return pil_resize(im, (out_h, out_w), "bicubic")
-    return _glue().pil_resize_sharded(im, (out_h, out_w), "bicubic", mesh)
+    return glue.resize(im, (out_h, out_w), "bicubic")
 
 
 def update_next_pyramidal_level(
     im1_next, prev_shape, im2_next, u_accum, v_accum, u, v,
-    warping=True, bi_linear=True, scale=False,
+    warping=True, bi_linear=True, scale=False, glue=DEVICE_GLUE,
 ):
     """Carry accumulated flow (and optionally warp the image pair) into a new
     pyramid level.  Returns (im1, im2, u_accum, v_accum, u_init, v_init).
-    On a mesh (the module docstring) the arrays are tiles and ``prev_shape``
-    the previous level's tile shape."""
-    mesh = _tile_mesh()
-    y_dim, x_dim = _shape(im1_next, mesh)
-    y_prev, x_prev = prev_shape
-    if mesh is not None:
-        y_prev, x_prev = _glue().global_shape(prev_shape, mesh)
+    With the tile glue (the module docstring) the arrays are tiles and
+    ``prev_shape`` the previous level's tile shape."""
+    y_dim, x_dim = glue.shape(im1_next.shape)
+    y_prev, x_prev = glue.shape(prev_shape)
 
     if (x_prev, y_prev) != (x_dim, y_dim):
-        upsample = spline_upsample if mesh is None else (
-            lambda z, hw: _glue().spline_upsample_sharded(z, hw, mesh))
-        us_new = upsample(u_accum, (y_dim, x_dim))
-        vs_new = upsample(v_accum, (y_dim, x_dim))
+        us_new = glue.upsample(u_accum, (y_dim, x_dim))
+        vs_new = glue.upsample(v_accum, (y_dim, x_dim))
     else:
         us_new = u_accum
         vs_new = v_accum
@@ -128,15 +129,10 @@ def update_next_pyramidal_level(
 
     zeros = torch.zeros(im1_next.shape[-2:], dtype=torch.float32, device=im1_next.device)
     if warping:
-        if bi_linear and mesh is None:
-            im1_next, im2_next = symmetric_warp_pair(im1_next, im2_next, us_new, vs_new)
-        elif bi_linear:
-            im1_next, im2_next = _glue().symmetric_warp_pair_sharded(im1_next, im2_next, us_new,
-                                                                     vs_new, mesh)
-        elif mesh is None:
-            im1_next = liu_shen_warp(im1_next, us_new, vs_new)
+        if bi_linear:
+            im1_next, im2_next = glue.warp_pair(im1_next, im2_next, us_new, vs_new)
         else:
-            im1_next = _glue().liu_shen_warp_sharded(im1_next, us_new, vs_new, mesh)
+            im1_next = glue.warp(im1_next, us_new, vs_new)
         return im1_next, im2_next, us_new, vs_new, zeros, zeros
     return im1_next, im2_next, zeros, zeros, us_new, vs_new
 
@@ -153,13 +149,12 @@ def generic_pyramidal_optical_flow(
     im2 = _as_image(im2, device)
     if im1.device != im2.device:
         raise ValueError(f"images on different devices: {im1.device} and {im2.device}")
-    mesh = _tile_mesh()
-    if mesh is not None:   # every level's global shape splits over the mesh, or raise
-        h, w = _shape(im1, mesh)
-        for level in range(1, pyramidalLevels + 1):
-            scale = 1.0 / (2.0 ** (pyramidalLevels - level))
-            shape = (int(np.round(h * scale)), int(np.round(w * scale))) if scale < 1.0 else (h, w)
-            _glue().check_splits(shape, mesh, f"pyramid level {level} of {pyramidalLevels}")
+    glue = _pick_glue()
+    h, w = glue.shape(im1.shape)
+    for level in range(1, pyramidalLevels + 1):   # on tiles: every level splits, or raise
+        scale = 1.0 / (2.0 ** (pyramidalLevels - level))
+        shape = (int(np.round(h * scale)), int(np.round(w * scale))) if scale < 1.0 else (h, w)
+        glue.check_splits(shape, f"pyramid level {level} of {pyramidalLevels}")
 
     if mainOFlowAlgoAdapter.hasGenericPyramidalDefaults():
         defaults = mainOFlowAlgoAdapter.getGenericPyramidalDefaults()
@@ -189,8 +184,8 @@ def generic_pyramidal_optical_flow(
             local_scaling = pyramidalScaling
 
         if scale < 1.0 and level != pyramidalLevels:
-            im1_new = _imresize_bicubic(im1, scale)
-            im2_new = _imresize_bicubic(im2, scale)
+            im1_new = _imresize_bicubic(im1, scale, glue)
+            im2_new = _imresize_bicubic(im2, scale, glue)
         elif scale > 1.0:
             raise ValueError(f"Invalid scale level: {scale}")
         else:
@@ -200,7 +195,7 @@ def generic_pyramidal_optical_flow(
         if level > 1:
             im1_warp, im2_warp, u_accum, v_accum, u, v = update_next_pyramidal_level(
                 im1_new, prev_shape, im2_new, u_accum, v_accum, u, v,
-                warping, biLinear, local_scaling,
+                warping, biLinear, local_scaling, glue,
             )
         else:
             im1_warp, im2_warp = im1_new, im2_new
@@ -208,14 +203,14 @@ def generic_pyramidal_optical_flow(
             u = v = u_accum = v_accum = zeros
 
         if FILTER > 1e-3:
-            im1_work = _prefilter(im1_warp, FILTER, 3, mesh)
-            im2_work = _prefilter(im2_warp, FILTER, 3, mesh)
+            im1_work = glue.prefilter(im1_warp, FILTER, 3)
+            im2_work = glue.prefilter(im2_warp, FILTER, 3)
         else:
             im1_work, im2_work = im1_warp, im2_warp
 
         if optionalOFlowAlgoAdapter is not None and FILTER_OPT > 1e-3:
-            im1_opt = _prefilter(im1_new, FILTER_OPT, 5, mesh)
-            im2_opt = _prefilter(im2_new, FILTER_OPT, 5, mesh)
+            im1_opt = glue.prefilter(im1_new, FILTER_OPT, 5)
+            im2_opt = glue.prefilter(im2_new, FILTER_OPT, 5)
         elif optionalOFlowAlgoAdapter is not None:
             im1_opt, im2_opt = im1_new, im2_new
 
@@ -225,17 +220,17 @@ def generic_pyramidal_optical_flow(
                 if warping:
                     im1_warp, im2_warp, u_accum, v_accum, u, v = update_next_pyramidal_level(
                         im1_new, im1_new.shape[-2:], im2_new, u_accum, v_accum, u, v,
-                        warping, biLinear, False,
+                        warping, biLinear, False, glue,
                     )
                     if FILTER > 1:
-                        im1_work = _prefilter(im1_warp, FILTER, 3, mesh)
-                        im2_work = _prefilter(im2_warp, FILTER, 3, mesh)
+                        im1_work = glue.prefilter(im1_warp, FILTER, 3)
+                        im2_work = glue.prefilter(im2_warp, FILTER, 3)
                     else:
                         im1_work, im2_work = im1_warp, im2_warp
                 else:
                     im1_work, im2_work, u_accum, v_accum, u, v = update_next_pyramidal_level(
                         im1_work, im1_work.shape[-2:], im2_work, u_accum, v_accum, u, v,
-                        warping, biLinear, False,
+                        warping, biLinear, False, glue,
                     )
 
             u, v, error = mainOFlowAlgoAdapter.compute(im1_work, im2_work, u, v)
