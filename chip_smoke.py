@@ -18,7 +18,9 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                Liu-Shen solve at 2x2, 3x517, 47x61, 333x517, 512^2 and
                2048^2, bit for bit with k equal, at 0, 1, T, T+1 and 60
                steps and for stops at k = 0, 1 and T-1 mod T, T its steps
-               per launch; the LK build at 512^2, 333x517 and
+               per launch, and with the device gate (0 and 1, with and
+               without the stop, the whole image and an apron mask)
+               against its plain version; the LK build at 512^2, 333x517 and
                2048^2, bit for bit, with the symmetric and an asymmetric
                window, and a four-run window at 512^2; the GN loop at those
                shapes bit for bit on a calibrated and a wild flow, the
@@ -93,7 +95,7 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                ``particle_image_pair(seed=0)``, the kernel-sharded HS solve
                ((1, 2, 2) mesh), the rows-sharded Liu-Shen solve ((1, 4, 1),
                60 steps), ``batched_hs_pipeline`` ((2, 1, 2), two pairs) and
-               ``auto_sharded_pipeline("HS_Fs3_4")`` ((1, 2, 2)), and the
+               route 1, ``sharded_pipeline_fn("HS_Fs3_4")`` ((1, 2, 2)), and the
                rows-sharded dense LK (``lk_solve_sharded_kernel``) and
                Farneback (``farneback_solve_sharded``) on (1, 4, 1), their
                launch and exchange counts zeroed just before each; rank 0
@@ -105,10 +107,12 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                every ``.mat`` equal to the single-device runner's).  Rank 0
                times one sharded HS_Fs3_4, Liu-Shen, LK and FB solve beside
                the eager single-device calls, with the halo exchanges, kernel
-               launches and host err reads per solve; the four-rank times
-               share one GPU and are no scaling figure.  Both groups also
-               run route 2, the sharded pyramid (``auto_sharded_pipeline``
-               of every configuration but the single-level HS ones, on
+               launches per solve (a host read of the sharded Liu-Shen's
+               err fails the group: its stop is on the device); the
+               four-rank times share one GPU and are no scaling figure.
+               Both groups also run route 2, the sharded pyramid, eagerly
+               (``sharded_pipeline_fn`` of every configuration but the
+               single-level HS ones, on
                (1, 2, 2) tiles) at 512^2, and of one configuration a solver
                at 2048^2 (``ROUTE2_AT_2048``), every kernel count zeroed
                just before each run; rank 0 holds each against
@@ -121,7 +125,19 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                of the same inputs, bit for bit
                (``kernels_against_plain``): the kernels are held at
                exactly the tiles, stripes, masks, aprons and step counts
-               route 2 gives them, at both sizes and both levels.  A
+               route 2 gives them, at both sizes and both levels, the
+               gated Liu-Shen calls included.  The four gloo ranks check
+               that ``auto_sharded_pipeline`` refuses their CUDA tiles,
+               naming ``sharded_pipeline_fn``.  The one NCCL rank then
+               replays the sharded pipeline as one CUDA graph a shape
+               (``auto_sharded_pipeline(..., _force_sharded=True)``): all
+               19 configurations at 512^2 and ``HS_Fs3_4`` with
+               ``ROUTE2_AT_2048`` at 2048^2, each bit for bit against
+               ``sharded_pipeline_fn`` and ``run_config``, no kernel counted
+               at a replay, and the event and host ms of the replay, the
+               eager sharded call and ``compiled_pipeline``'s replay in 10
+               turns (the ``kernels`` line counts, per kernel, the replayed
+               runs whose capture launched it).  A
                failed rank stops the group and fails the phase.  Before
                the groups, K3's caller-padded mode is held against its
                plain version and the whole-image kernel cropped, bit for
@@ -839,7 +855,9 @@ def rank_main(argv) -> None:
         farneback_solve_sharded, gather_axis, hs_solve_sharded, liu_shen_solve_sharded,
         lk_solve_sharded_kernel, make_mesh,
     )
-    from opticalflow_ri_tpu_torch.parallel.auto import HS_SINGLE_LEVEL, auto_sharded_pipeline
+    from opticalflow_ri_tpu_torch.parallel.auto import (
+        HS_SINGLE_LEVEL, auto_sharded_pipeline, sharded_pipeline_fn,
+    )
     from opticalflow_ri_tpu_torch.parallel.sharded_kernel import liu_shen_solve_sharded_kernel
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -881,9 +899,13 @@ def rank_main(argv) -> None:
                 exchange_halo.exchanges, liu_shen_solve_sharded_kernel.err_reads)
 
     def per_call(before):
-        after = counts()
-        return dict(zip(("hs_iterate_launches", "liu_shen_iterate_launches", "halo_exchanges",
-                         "host_err_reads"), (a - b for a, b in zip(after, before))))
+        """The counts since ``before``; the sharded Liu-Shen's stop is on
+        the device, so a host read of its err fails the group."""
+        used = dict(zip(("hs_iterate_launches", "liu_shen_iterate_launches", "halo_exchanges",
+                         "host_err_reads"), (a - b for a, b in zip(counts(), before))))
+        if used["host_err_reads"]:
+            raise AssertionError(f"{label}: the sharded Liu-Shen read its err on the host: {used}")
+        return used
 
     # Horn-Schunck on the kernel, ("y", "x") tiles
     m_hs = mesh((1, 2, 2))
@@ -939,8 +961,8 @@ def rank_main(argv) -> None:
                   {"bitwise": same((u[k], v[k]), ref[:2]), "err": err_of[k],
                    "single_err": float(ref[2]), "mesh": list(m_b.shape), **used})
 
-    # auto_sharded_pipeline route 1 against run_config
-    fn = auto_sharded_pipeline("HS_Fs3_4", m_hs, _force_sharded=one)
+    # route 1, run eagerly (sharded_pipeline_fn), against run_config
+    fn = sharded_pipeline_fn("HS_Fs3_4", m_hs)
     sl = distributed.local_slices(m_hs, shape, spec)
     tiles = [im[sl].contiguous() for im in pair]
     before = counts()
@@ -951,7 +973,7 @@ def rank_main(argv) -> None:
         ref = run_config("HS_Fs3_4", *pair)
         d = max(float((g - w).abs().max()) for g, w in zip((u, v), ref))
         e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
-        check("auto_sharded_pipeline('HS_Fs3_4') route 1 against run_config",
+        check("sharded_pipeline_fn('HS_Fs3_4') route 1 against run_config",
               (same((u, v), ref) or e <= AEE_BAR) and used["hs_iterate_launches"] > 0,
               {"bitwise": same((u, v), ref), "max_abs_diff": d, "aee": e,
                "mesh": list(m_hs.shape), **used})
@@ -1115,11 +1137,25 @@ def rank_main(argv) -> None:
         for wrapper in route2_wrappers.values():
             wrapper.launches = 0
         exchange_halo.exchanges = gather_axis.gathers = 0
+        liu_shen_solve_sharded_kernel.err_reads = 0
         out = call()
+        if liu_shen_solve_sharded_kernel.err_reads:
+            raise AssertionError(f"{label}: the sharded Liu-Shen read its err on the host")
         return out, {"halo_exchanges": exchange_halo.exchanges, "gathers": gather_axis.gathers,
+                     "host_err_reads": liu_shen_solve_sharded_kernel.err_reads,
                      **{f"{k}_launches": f.launches for k, f in route2_wrappers.items()}}
 
     m_r2 = mesh((1, 2, 2))
+    if not one:
+        # the graph-replaying entry refuses CUDA tiles on gloo, naming the
+        # eager one, which runs every check of this group
+        try:
+            auto_sharded_pipeline("HS_Fs3_4", m_r2)(*tiles)
+            raised = None
+        except ValueError as err:
+            raised = str(err)
+        check("auto_sharded_pipeline on CUDA tiles over gloo raises, naming sharded_pipeline_fn",
+              raised is not None and "sharded_pipeline_fn" in raised, {"raised": raised})
     route2 = [n for n in CONFIGS if n not in HS_SINGLE_LEVEL]
     pair512 = [torch.as_tensor(im, device=dev)
                for im in particle_image_pair((512, 512), seed=0)[:2]]
@@ -1127,7 +1163,7 @@ def rank_main(argv) -> None:
         sl = distributed.local_slices(m_r2, p2[0].shape, spec)
         t2 = [im[sl].contiguous() for im in p2]
         for name in names:
-            fn2 = auto_sharded_pipeline(name, m_r2, _force_sharded=one)
+            fn2 = sharded_pipeline_fn(name, m_r2)
             (u, v), used = route2_counts(lambda: fn2(*t2))
             u, v = (distributed.gather_global(m_r2, t, spec) for t in (u, v))
             # the same run again (not counted), each kernel call held against
@@ -1145,7 +1181,7 @@ def rank_main(argv) -> None:
                 t_1 = timed(lambda: run_config(name, *p2), reps=3, together=False)
                 e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
                 launched = {k for k in route2_wrappers if used[f"{k}_launches"] > 0}
-                check(f"auto_sharded_pipeline({name!r}) route 2 at {size}x{size} against "
+                check(f"sharded_pipeline_fn({name!r}) route 2 at {size}x{size} against "
                       f"run_config", e <= AEE_BAR and launched == expected_kernels(name),
                       {"route2": name, "size": size, "bitwise": same((u, v), ref), "aee": e,
                        "max_abs_diff": max_diff((u, v), ref),
@@ -1165,6 +1201,70 @@ def rank_main(argv) -> None:
         del t2
         torch.cuda.empty_cache()
     torch.distributed.barrier()
+
+    if one:
+        # the sharded pipeline as one CUDA graph per tile shape
+        # (auto_sharded_pipeline, _force_sharded on the one rank): every
+        # configuration at 512^2 (route 1 and route 2) and route 2's 2048^2
+        # set with HS_Fs3_4, each replay bit for bit against the eager
+        # sharded call and run_config; the kernels counted during the
+        # first call (its eager warm-up and the capture; a replay counts
+        # nothing); event ms of the replay, the eager sharded call and
+        # compiled_pipeline's replay in turns
+        from opticalflow_ri_tpu_torch.compile import compiled_pipeline
+
+        def turns(calls: dict, reps: int = 10) -> dict:
+            ev, host = {k: [] for k in calls}, {k: [] for k in calls}
+            for _ in range(reps):
+                for k, call in calls.items():
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t0 = time.perf_counter()
+                    call()
+                    host[k].append(1e3 * (time.perf_counter() - t0))
+                    end.record()
+                    end.synchronize()
+                    ev[k].append(start.elapsed_time(end))
+            return {k: (statistics.median(ev[k]), statistics.median(host[k])) for k in calls}
+
+        for size, names, p2 in ((512, list(CONFIGS), pair512),
+                                (shape[0], ["HS_Fs3_4", *ROUTE2_AT_2048], pair)):
+            for name in names:
+                graph = auto_sharded_pipeline(name, m_r2, _force_sharded=True)
+                eager = sharded_pipeline_fn(name, m_r2)
+                single = compiled_pipeline(name)
+                t0 = time.perf_counter()
+                got, captured = route2_counts(lambda: graph(*p2))
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t0
+                want = eager(*p2)
+                ref = run_config(name, *p2)
+                again, replayed = route2_counts(lambda: graph(*p2))
+                single(*p2)   # its capture, before the turns
+                t = turns({"replay": lambda: graph(*p2), "eager": lambda: eager(*p2),
+                           "single_replay": lambda: single(*p2)})
+                rec = {"graph_sharded": name, "size": size,
+                       "route": 1 if name in HS_SINGLE_LEVEL else 2,
+                       "bitwise_eager": same(got, want) and same(again, want),
+                       "bitwise_run_config": same(got, ref),
+                       "max_abs_diff_run_config": max_diff(got, ref),
+                       "warm_up_and_capture": {k: c for k, c in captured.items() if c},
+                       "replay_launches": sum(replayed[f"{k}_launches"]
+                                              for k in route2_wrappers),
+                       "host_err_reads": captured["host_err_reads"], "capture_s": capture_s,
+                       "replay_ms": t["replay"][0], "replay_host_ms": t["replay"][1],
+                       "eager_sharded_ms": t["eager"][0], "eager_sharded_host_ms": t["eager"][1],
+                       "single_replay_ms": t["single_replay"][0],
+                       "single_replay_host_ms": t["single_replay"][1], "reps": 10}
+                check(f"auto_sharded_pipeline({name!r}) replayed at {size}x{size} against "
+                      f"sharded_pipeline_fn and run_config", rec["bitwise_eager"]
+                      and rec["bitwise_run_config"] and rec["replay_launches"] == 0, rec)
+                graph.release()
+                single.release()
+                del got, want, ref, again, graph
+            torch.cuda.empty_cache()
 
     if not one:
         # the batch-sharded scan: 16 pairs at 512^2 over four ranks
@@ -1372,6 +1472,7 @@ def main() -> None:
     # next-to-last step of a launch (the last two replayed)
     ls_steps = liu_shen_iter.STEPS_PER_LAUNCH
     shapes = [(2, 2), (3, 517), (47, 61), (333, 517), (512, 512), (2048, 2048)]
+    gated_err = 0.0
     for shape in shapes:
         fields = ls_fields(shape)
         u0, v0 = rand(shape, -0.5, 0.5), rand(shape, -0.5, 0.5)
@@ -1396,6 +1497,29 @@ def main() -> None:
             if not (kg == kw and same and e_rel <= LS_ERR_BAR):
                 raise AssertionError(f"liu_shen disagrees with its plain version at {shape}")
             err["liu_shen"] = max(err["liu_shen"], d)
+        # the device gate of the sharded solve's stop: 0 runs no step and
+        # returns (u0, v0, 0, 0), 1 the call without a gate; with and
+        # without the stop, the whole image and an apron mask
+        for gate in (0, 1):
+            g = torch.tensor(gate, dtype=torch.int32, device=dev)
+            for stop, edges, tol in ((True, hs_iter.ALL, 1e-7), (False, hs_iter.ALL, 0.0),
+                                     (False, 0, 0.0)):
+                args = (10.0, fields, u0, v0, 60, tol, edges, stop)
+                got = liu_shen_iter.liu_shen_iterate(*args, gate=g)
+                want = liu_shen_iter.liu_shen_iterate_plain(*args, gate=g)
+                torch.cuda.synchronize()
+                d = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+                same = (all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+                        and int(got[3]) == int(want[3]))
+                if gate == 0:
+                    same = (same and torch.equal(got[0], u0) and torch.equal(got[1], v0)
+                            and int(got[3]) == 0 and float(got[2]) == 0.0)
+                print(f"liu_shen {shape} gate={gate} stop={stop} edges={edges}: max|d|={d!r} "
+                      f"(bar: bitwise, k equal) bitwise={same} k={int(got[3])}")
+                if not same:
+                    raise AssertionError(f"gated liu_shen disagrees with its plain version at "
+                                         f"{shape}")
+                gated_err = max(gated_err, d)
         del fields
         torch.cuda.empty_cache()
 
@@ -2246,6 +2370,24 @@ def main() -> None:
                for per in route2_plain.values()):
             raise AssertionError(f"a kernel of route 2's path was not held against its plain "
                                  f"version in both groups, or differed: {route2_plain}")
+        # the sharded graphs on the one NCCL rank: every configuration at
+        # 512^2 and the 2048^2 set replayed, bit for bit (each checked in
+        # the rank); the replayed runs whose capture launched each kernel
+        graphs = [r for r in (json.loads(line) for line in nccl_lines if line.startswith("{"))
+                  if "graph_sharded" in r]
+        want_graphs = len(CONFIGS) + 1 + len(ROUTE2_AT_2048)
+        if len(graphs) != want_graphs or not all(r["ok"] for r in graphs):
+            raise AssertionError(f"the one NCCL rank replayed {len(graphs)} sharded graphs, "
+                                 f"{want_graphs} expected, or one disagreed")
+        graph_runs = {name: sum(1 for r in graphs
+                                if r["warm_up_and_capture"].get(f"{name}_launches", 0) > 0)
+                      for name in ROUTE2_KERNELS}
+        if min(graph_runs.values()) < 1:
+            raise AssertionError(f"a kernel of routes 1 and 2 is in no sharded graph: {graph_runs}")
+        print(json.dumps({"parallel": "sharded graphs, one NCCL rank", "runs": len(graphs),
+                          "route1_runs": sum(r["route"] == 1 for r in graphs),
+                          "route2_runs": sum(r["route"] == 2 for r in graphs),
+                          "runs_per_kernel": graph_runs, "gpu": gpu}), flush=True)
         runner = [json.loads(line) for line in lines if '"runner"' in line]
         if not runner:
             raise AssertionError("the four-rank group reported no runner result")
@@ -2315,6 +2457,10 @@ def main() -> None:
             kern["sharded_launches"] = sharded_launches[name]
         if name == "warp_pair":  # the sharded pyramid's caller-padded mode
             kern["padded_max_abs_err"] = padded_warp_err
+        if name == "liu_shen":  # the device gate of the sharded solve's stop
+            kern["gated_max_abs_err"] = gated_err
+        if name in graph_runs:  # sharded runs replayed as one CUDA graph
+            kern["sharded_graph_runs"] = graph_runs[name]
         if name in route2_launches:
             kern["route2_launches"] = route2_launches[name]
             kern["route2_max_abs_err"] = max(g["max_abs_diff"]

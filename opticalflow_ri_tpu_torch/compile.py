@@ -1,4 +1,5 @@
-"""Whole-config pipelines: one CUDA graph per (config, image shape).
+"""Whole-config pipelines: one CUDA graph per (config, image shape), and
+the same for a rank's tiles of a sharded run.
 
 The JAX package traces a calibrated configuration into one XLA program per
 input shape, so a pair is one dispatch (``compile.py:29-45`` there).  Here
@@ -21,6 +22,14 @@ capture allows), then captures.  A failure to capture or replay raises;
 there is no eager fallback on the card.  CPU inputs (``device="cpu"``, or
 CPU tensors) run the eager path.  A kernel wrapper's ``launches`` counter
 counts at capture, not at replay.
+
+``CompiledPipeline`` takes any run function with the signature of
+``build_config(name).run``: ``parallel.auto.auto_sharded_pipeline`` gives
+it a rank's sharded pipeline (``parallel.auto.sharded_pipeline_fn``), and
+the graphs are then keyed by (tile H, tile W, device, mesh).  The warm-up
+run of a sharded pipeline also creates the process group's communicators,
+which a capture must not do; every rank then captures the same sequence
+of collectives.
 
 ``batched_pipeline`` (a ``vmap`` over pairs) is not ported: the JAX package
 deprecates it (slower than the scan at a larger working set), and
@@ -81,14 +90,18 @@ class _Graph(NamedTuple):
 
 class CompiledPipeline:
     """``compiled_pipeline(name)``: ``fn(im1, im2, device="cuda") -> (U, V)``,
-    fresh float32 tensors on the pair's device.  Not thread-safe: call it
-    from one thread at a time."""
+    fresh float32 tensors on the pair's device.  ``run`` (default: the
+    config's ``build_config(name).run``) is what is warmed up, captured and
+    replayed, ``run(im1, im2, device=...) -> (U, V)``; ``key`` is added to
+    each graph's (h, w, device) key.  Not thread-safe: call it from one
+    thread at a time."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, run=None, key: tuple = ()):
         self.name = name
-        self._run = build_config(name).run
-        self._graphs: dict = {}   # (h, w, device) -> _Graph
-        self._warm: set = set()   # (h, w, device) run once eagerly
+        self._run = build_config(name).run if run is None else run
+        self._key = tuple(key)
+        self._graphs: dict = {}   # (h, w, device, *key) -> _Graph
+        self._warm: set = set()   # (h, w, device, *key) run once eagerly
 
     def __call__(self, im1, im2, device="cuda"):
         dev = _device_of(im1, device)
@@ -104,7 +117,7 @@ class CompiledPipeline:
         dev = _device_of(im1, device)
         if dev.type != "cuda":
             raise ValueError(f"replay runs a CUDA graph, not on {dev}")
-        key = (*_check_pair(im1, im2, 2), dev)
+        key = (*_check_pair(im1, im2, 2), dev, *self._key)
         g = self._graphs.get(key)
         if g is None:
             g = self._graphs[key] = self._capture(key, im1, im2)
@@ -118,7 +131,7 @@ class CompiledPipeline:
         shape, unless that shape is warm already.  The first call at a shape
         does this itself before it captures."""
         dev = _device_of(im1, device)
-        key = (*_check_pair(im1, im2, 2), dev)
+        key = (*_check_pair(im1, im2, 2), dev, *self._key)
         if key in self._warm or dev.type != "cuda":
             return
         with torch.cuda.device(dev):
@@ -130,7 +143,7 @@ class CompiledPipeline:
         self._warm.add(key)
 
     def _capture(self, key, im1, im2) -> _Graph:
-        h, w, dev = key
+        h, w, dev = key[:3]
         self.warm_up(im1, im2, dev)
         inputs = tuple(torch.empty((h, w), dtype=torch.float32, device=dev) for _ in range(2))
         graph = torch.cuda.CUDAGraph()

@@ -76,6 +76,13 @@
 // it owns.  All four bits set and stop = 1 is the whole-image solve, bit for
 // bit.
 //
+// The gate, for the sharded solve's device-side stop
+// (parallel/sharded_kernel.py): an optional device int, read by the init
+// launch.  0 clears the active flag before any step, so every launch of
+// the solve returns at once and the finish launch copies (u0, v0) out: no
+// work after the stop, as in the JAX package's while loop, and no host
+// read to decide it.
+//
 // Numerics: the association order is that of models/liu_shen.py
 // (ls_field_stencils, ls_ring_sum, liu_shen_iteration); built with
 // -fmad=false, u and v equal the plain PyTorch version
@@ -139,16 +146,20 @@ int num_blocks(int h, int w, int T) {
 
 size_t smem_bytes(int T) { return kStateSmem + sizeof(double2) * (size_t)T * kThreads; }
 
-// stop = 0: the solve runs max_iter steps without err, into kOut
-__global__ void ls_init_kernel(LsState* st, int active, int stop, int max_iter) {
-  st->active = active;
-  st->k = stop ? 0 : max(max_iter, 0);
+// stop = 0: the solve runs max_iter steps without err, into kOut.  gate:
+// null, or a device int that is read here; 0 makes the solve one of no
+// step (inactive, k = 0, the result (u0, v0)), whatever max_iter and stop.
+__global__ void ls_init_kernel(LsState* st, int active, int stop, int max_iter,
+                               const int* gate) {
+  const bool open = gate == nullptr || *gate != 0;
+  st->active = open ? active : 0;
+  st->k = open && !stop ? max(max_iter, 0) : 0;
   st->err = stop ? 1e8f : __int_as_float(0x7fc00000);  // no err: NaN
   st->ticket = 0u;
   st->replay_n = 0;
   st->replay_src = kIn;
   st->replay_dst = kOut;
-  st->final_buf = stop ? kIn : kOut;
+  st->final_buf = open && !stop ? kOut : kIn;
 }
 
 // The left and right neighbours of cell j in a row of 4 cells x, with lx, rx
@@ -473,6 +484,9 @@ extern "C" size_t ofri_liu_shen_workspace_bytes(int h, int w, int T) {
 // ofri_liu_shen_workspace_bytes(h, w, T) bytes.  edges: the sides that are
 // the image's border, a mask of kTop | kBottom | kLeft | kRight (15: the
 // whole image).  stop = 0 runs all max_iter steps and writes err = NaN.
+// gate: null, or a device pointer to an int read on the device when the
+// solve starts: 0 runs no step (every step launch returns at once, the
+// output is (u0, v0), k = 0 and err = 0), anything else the solve above.
 // Enqueues everything on `stream` without waiting; returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments that break
 // these rules.
@@ -482,8 +496,8 @@ extern "C" int ofri_liu_shen_iterate(const float* iix, const float* iiy, const f
                                      const float* u0, const float* v0, int max_iter, float tol,
                                      int h, int w, int T, const int* plan, int nlaunch,
                                      float* u_out, float* v_out, float* u_tmp, float* v_tmp,
-                                     float* err_out, int* k_out, void* workspace, int edges,
-                                     int stop, int device, cudaStream_t stream) {
+                                     float* err_out, int* k_out, void* workspace, const int* gate,
+                                     int edges, int stop, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (h < 2 || w < 2 || T < 1 || T > kMaxT || nlaunch < 0 || edges < 0 || edges > 15 ||
@@ -506,7 +520,7 @@ extern "C" int ofri_liu_shen_iterate(const float* iix, const float* iiy, const f
   const LsBuffers bufs{{u_out, u_tmp, u0}, {v_out, v_tmp, v0}};
   // the first check of the XLA loop: err = 1e8 > tol and 0 < max_iter
   const int active = (max_iter > 0) && (!stop || 1e8f > tol);
-  ls_init_kernel<<<1, 1, 0, stream>>>(st, active, stop, max_iter);
+  ls_init_kernel<<<1, 1, 0, stream>>>(st, active, stop, max_iter, gate);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 

@@ -27,7 +27,11 @@ take ``edges``, the sides that are the image's border (``hs_iter.TOP`` ...,
 ``ALL`` by default): beyond a side left out the iteration reads 0 in place of
 the nearest rule.  ``stop=False`` runs exactly ``max_iter`` steps and
 computes no err (NaN is returned; k = max_iter): the caller takes err on the
-cells it owns.
+cells it owns.  ``gate``, a 0-d int32 tensor on the flow's device, decides
+on the device whether the call runs at all: 0 returns (u0, v0) with err 0
+and k 0, as a solve of no step, and anything else the call without a gate.
+No host reads it; the sharded solve passes each block the stop test of the
+block before.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 2
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 # Steps per launch (the temporal block depth T of csrc/liu_shen.cu), set by
@@ -130,10 +134,17 @@ def liu_shen_iteration(u, v, fields, h, edges: int = ALL):
 
 
 def liu_shen_iterate_plain(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8,
-                           edges: int = ALL, stop: bool = True):
+                           edges: int = ALL, stop: bool = True, gate=None):
     """The XLA while loop in PyTorch: err = (‖Δu‖_F + ‖Δv‖_F)/(H·W), compared
     with tol in float32 as JAX compares them.  ``stop=False``: exactly
-    ``max_iter`` steps, no err (NaN)."""
+    ``max_iter`` steps, no err (NaN).  ``gate``: the solve's result where it
+    is nonzero, else (u0, v0, 0, 0), selected with ``torch.where``."""
+    if gate is not None:
+        out = liu_shen_iterate_plain(h, fields, u0, v0, max_iter, tol, edges, stop)
+        g = gate != 0
+        return (torch.where(g, out[0], u0), torch.where(g, out[1], v0),
+                torch.where(g, out[2], torch.zeros_like(out[2])),
+                torch.where(g, out[3], torch.zeros_like(out[3])))
     if not stop:
         u, v, n = u0, v0, max(0, int(max_iter))
         for _ in range(n):
@@ -155,19 +166,23 @@ def liu_shen_iterate_plain(h, fields, u0, v0, max_iter: int = 60, tol: float = 1
 
 
 def liu_shen_iterate(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8,
-                     edges: int = ALL, stop: bool = True):
+                     edges: int = ALL, stop: bool = True, gate=None):
     """Run the Liu-Shen fixed-point solve on the 8 precomputed fields
     (iix, iiy, ii, ixt, iyt, b11, b12, b22); returns (u, v, err, k).
 
     CPU tensors run ``liu_shen_iterate_plain``; CUDA tensors launch the
     kernel: one C call enqueues the whole solve (an init launch, the step
     launches of ``launch_plan``, which return at once after the stop, the
-    replay launch and a finish launch).
+    replay launch and a finish launch; the init launch reads ``gate``).
     """
     if not 0 <= int(edges) <= ALL:
         raise ValueError(f"edges must be a mask of TOP, BOTTOM, LEFT, RIGHT, got {edges}")
+    if gate is not None and (gate.dtype != torch.int32 or gate.dim() != 0
+                             or gate.device != u0.device):
+        raise ValueError(f"gate must be a 0-d int32 tensor on {u0.device}, got "
+                         f"{gate.dtype} {tuple(gate.shape)} on {gate.device}")
     if fields[0].device.type == "cpu":
-        return liu_shen_iterate_plain(h, fields, u0, v0, max_iter, tol, edges, stop)
+        return liu_shen_iterate_plain(h, fields, u0, v0, max_iter, tol, edges, stop, gate)
     build.check_fields("liu_shen_iterate", *fields, u0, v0)
     rows, cols = u0.shape
     dev = u0.device
@@ -190,8 +205,8 @@ def liu_shen_iterate(h, fields, u0, v0, max_iter: int = 60, tol: float = 1e-8,
                v0.data_ptr(), int(max_iter), float(np.float32(tol)), rows, cols, steps,
                ctypes.cast(table, ctypes.c_void_p), len(plan), u_out.data_ptr(),
                v_out.data_ptr(), u_tmp.data_ptr(), v_tmp.data_ptr(), err.data_ptr(),
-               k.data_ptr(), workspace.data_ptr(), int(edges), int(bool(stop)), dev.index or 0,
-               stream)
+               k.data_ptr(), workspace.data_ptr(), None if gate is None else gate.data_ptr(),
+               int(edges), int(bool(stop)), dev.index or 0, stream)
     build.check(rc, "liu_shen_iterate")
     return u_out, v_out, err, k
 

@@ -19,9 +19,10 @@ rank's LOCAL tiles:
     of the Farneback pyramid);
   * the sharded pyramid: ``kernel_sharded_solvers(mesh)`` (``context.py``)
     makes the pyramid run its glue on tiles (``sharded_glue.py``) and the
-    four adapters their kernel-sharded solves; ``auto.auto_sharded_pipeline``
-    runs every configuration that way (route 2), the single-level HS ones
-    on route 1.
+    four adapters their kernel-sharded solves; ``sharded_pipeline_fn``
+    runs every configuration that way eagerly (route 2), the single-level
+    HS ones on route 1, and ``auto_sharded_pipeline`` replays it as one
+    CUDA graph per tile shape on NCCL (``auto.py``).
 
 Not ported: ``liu_shen_warp`` (``biLinear=False``, no configuration) on a
 mesh of more than one rank raises (ROADMAP.md, Queue 1).
@@ -49,6 +50,7 @@ from opticalflow_ri_tpu_torch.parallel.batch_stream import (
     batch_sharded_scan,
     batch_sharding,
 )
+from opticalflow_ri_tpu_torch.parallel.auto import auto_sharded_pipeline, sharded_pipeline_fn
 
 __all__ = [
     "make_mesh", "mesh_shape_for", "exchange_halo", "gather_axis",
@@ -57,4 +59,5 @@ __all__ = [
     "lk_solve_sharded_kernel", "pick_lk_shard_stripe",
     "farneback_solve_sharded", "farneback_iterate_sharded", "fb_shard_supported",
     "batch_sharded_scan", "batch_sharding",
+    "auto_sharded_pipeline", "sharded_pipeline_fn",
 ]

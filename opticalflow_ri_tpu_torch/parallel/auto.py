@@ -5,6 +5,15 @@
     fn = auto_sharded_pipeline("PyHSchunck_Fs3_4_PyrLvls2", mesh)
     u, v = fn(im1_tile, im2_tile)      # this rank's ("y", "x") tiles
 
+``auto_sharded_pipeline`` is the counterpart of the JAX package's
+``jax.jit`` of the sharded pipeline (``parallel/auto.py:186`` there): on
+CUDA tiles over NCCL it captures the rank's run in one CUDA graph per
+(tile shape, device, mesh) and replays it (``compile.CompiledPipeline``),
+so a pair is one graph launch a rank, with no host step between kernels.
+CPU tiles run the eager function.  CUDA tiles on a gloo group raise
+``ValueError``: gloo stages the slabs through host memory, which a capture
+cannot hold; ``sharded_pipeline_fn``, the eager function, runs them.
+
 Route 1, kernel-sharded: the single-level Horn-Schunck configurations run
 the calibrated pre-filter and the HS solve on each rank's tile, the solve on
 the Hopper kernel with one T-deep halo exchange per launch
@@ -27,8 +36,10 @@ image onto one rank.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from opticalflow_ri_tpu_torch.parallel.mesh import axis_size
+from opticalflow_ri_tpu_torch.compile import CompiledPipeline, _device_of
+from opticalflow_ri_tpu_torch.parallel.mesh import axis_group, axis_size
 
 # single-level Horn-Schunck configs: pipeline == calibrated prefilter + one
 # HS solve, exactly what the kernel-sharded step implements
@@ -92,16 +103,62 @@ def _pyramid_sharded(name: str, mesh):
     return sharded
 
 
+def sharded_pipeline_fn(name: str, mesh):
+    """(im1, im2) -> (U, V) on this rank's ("y", "x") tiles, run eagerly:
+    route 1 for the single-level HS configs, route 2 for every other (the
+    module docstring).  The counterpart of ``compile.pipeline_fn``, and the
+    one sharded entry that runs CUDA tiles on a gloo group."""
+    if name in HS_SINGLE_LEVEL:
+        return _hs_config_kernel_sharded(name, mesh)
+    return _pyramid_sharded(name, mesh)
+
+
+class ShardedPipeline(CompiledPipeline):
+    """``auto_sharded_pipeline(name, mesh)`` on more than one rank (or
+    forced): ``fn(im1, im2) -> (U, V)`` on this rank's tiles, a replay of
+    the graph of their shape on CUDA tiles over NCCL, the eager function on
+    CPU tiles.  Every rank of the mesh calls it with tiles of one shape.
+    ``release()`` frees the graphs."""
+
+    def __init__(self, name: str, mesh):
+        fn = sharded_pipeline_fn(name, mesh)
+
+        def run(im1, im2, device):
+            return fn(torch.as_tensor(im1, device=device), torch.as_tensor(im2, device=device))
+
+        super().__init__(name, run, key=(mesh,))
+        self.mesh = mesh
+
+    def _check(self, im1, device):
+        if _device_of(im1, device).type == "cuda" and any(
+                dist.get_backend(axis_group(self.mesh, a)) == "gloo" for a in ("y", "x")):
+            raise ValueError(
+                f"auto_sharded_pipeline({self.name!r}) captures CUDA graphs, which cannot hold "
+                f"gloo's staging of CUDA tiles through host memory: on a gloo group run the "
+                f"eager parallel.auto.sharded_pipeline_fn({self.name!r}, mesh)")
+
+    def replay(self, im1, im2, device="cuda"):
+        self._check(im1, device)
+        return super().replay(im1, im2, device)
+
+    def warm_up(self, im1, im2, device="cuda") -> None:
+        self._check(im1, device)
+        super().warm_up(im1, im2, device)
+
+
 def auto_sharded_pipeline(name: str, mesh, batch: bool = False, _force_sharded: bool = False):
     """(im1, im2) -> (U, V) running SPMD over ``mesh`` on this rank's tiles.
 
     A one-rank mesh returns the plain ``compile.compiled_pipeline(name)``
     (``scan_pipeline`` with ``batch=True``): there is nothing to decompose
     (``_force_sharded=True`` takes the sharded route anyway, for
-    measurement).  Otherwise the single-level HS configs take route 1 and
-    every other config route 2 (the module docstring).  ``batch=True``
-    (JAX's vmapped GSPMD route) raises ``NotImplementedError`` on more
-    than one rank: ``batch_sharded_scan`` is the campaign construct."""
+    measurement).  Otherwise a ``ShardedPipeline``: the single-level HS
+    configs take route 1 and every other config route 2 (the module
+    docstring), one CUDA graph per tile shape on NCCL, eager on CPU tiles;
+    CUDA tiles on gloo raise (``sharded_pipeline_fn`` runs them).  Keep
+    the returned object: its graphs live in it.  ``batch=True`` (JAX's
+    vmapped GSPMD route) raises ``NotImplementedError`` on more than one
+    rank: ``batch_sharded_scan`` is the campaign construct."""
     if mesh.size() == 1 and not _force_sharded:
         from opticalflow_ri_tpu_torch.compile import compiled_pipeline, scan_pipeline
 
@@ -111,6 +168,4 @@ def auto_sharded_pipeline(name: str, mesh, batch: bool = False, _force_sharded: 
             f"auto_sharded_pipeline({name!r}, batch=True) on a mesh: the JAX package vmaps its "
             f"GSPMD route, which has no counterpart here; for campaigns of pairs use "
             f"parallel.batch_sharded_scan")
-    if name in HS_SINGLE_LEVEL:
-        return _hs_config_kernel_sharded(name, mesh)
-    return _pyramid_sharded(name, mesh)
+    return ShardedPipeline(name, mesh)

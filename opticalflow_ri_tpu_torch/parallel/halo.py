@@ -20,6 +20,16 @@ Transport, chosen by the group's backend:
     one GPU (NCCL refuses two ranks on one device).  It is chosen up front
     from the backend, never as a retry after a failure.
 
+``refresh_apron`` is the exchange of an iterated field that stays padded
+from one kernel launch to the next: it writes the neighbours' slabs
+straight into the apron of the padded buffer, y rows first, then x columns
+over the full padded height so that the corners arrive, and moves nothing
+else.
+
+Staging through host memory cannot be captured in a CUDA graph:
+``_send_recv``, ``gather_axis`` and ``reduce_over`` raise when asked to
+stage while the current stream is capturing (``utils.device.capturing``).
+
 ``reduce_over`` all-reduces a tensor over mesh axes with the same staging
 rule (the sharded solvers' error norms and image maxima: JAX's psum and
 pmax).  ``gather_axis`` all-gathers the tiles along one mesh axis (the
@@ -33,15 +43,20 @@ import torch
 import torch.distributed as dist
 
 from opticalflow_ri_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+from opticalflow_ri_tpu_torch.utils.device import capturing
 
 _MODES = ("mirror", "symmetric", "nearest", "constant")
 
 
 def _staged(group, t: torch.Tensor) -> bool:
     """True where ``t`` must pass through host memory: a CUDA tensor on a
-    gloo group.  A CPU tensor on an NCCL group cannot move at all."""
+    gloo group.  A CPU tensor on an NCCL group cannot move at all, and
+    nothing can be staged while a CUDA graph is being captured."""
     backend = dist.get_backend(group)
     if t.device.type == "cuda":
+        if backend == "gloo" and capturing():
+            raise RuntimeError("a gloo group stages CUDA tiles through host memory, which a "
+                               "CUDA graph capture cannot hold: capture on an NCCL group")
         return backend == "gloo"
     if backend == "nccl":
         raise ValueError("an NCCL group moves CUDA tensors only; this tile is on the CPU")
@@ -67,27 +82,40 @@ def _boundary_block(x, n, side, axis, mode):
     return torch.zeros(shape, dtype=x.dtype, device=x.device)
 
 
-def _send_recv(group, sends: dict, recvs: dict) -> dict:
+def _send_recv_into(group, sends: dict, targets: dict) -> None:
     """Post the sends ({group rank: tensor}) and receives ({group rank:
-    (shape, like)}) on ``group`` in one batch and wait; returns the received
-    tensors on the device of ``like``."""
-    if not sends and not recvs:
-        return {}
-    like = next(iter(sends.values())) if sends else next(iter(recvs.values()))[1]
+    tensor written in place}) on ``group`` in one batch and wait.  A
+    target that is contiguous on a group that moves it directly receives
+    in place; any other (a strided view, a staged tile) receives into a
+    buffer of its own size that is then copied in."""
+    if not sends and not targets:
+        return
+    like = next(iter(sends.values())) if sends else next(iter(targets.values()))
     host = _staged(group, like)
-    ops, out = [], {}
+    ops, staged = [], {}
     for peer, t in sends.items():
         t = t.to("cpu") if host else t.contiguous()
         ops.append(dist.P2POp(dist.isend, t, peer=dist.get_global_rank(group, peer),
                               group=group))
-    for peer, (shape, ref) in recvs.items():
-        out[peer] = torch.empty(shape, dtype=ref.dtype, device="cpu" if host else ref.device)
-        ops.append(dist.P2POp(dist.irecv, out[peer], peer=dist.get_global_rank(group, peer),
+    for peer, dst in targets.items():
+        buf = dst
+        if host or not dst.is_contiguous():
+            buf = staged[peer] = torch.empty(dst.shape, dtype=dst.dtype,
+                                             device="cpu" if host else dst.device)
+        ops.append(dist.P2POp(dist.irecv, buf, peer=dist.get_global_rank(group, peer),
                               group=group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    if host:
-        out = {peer: t.to(recvs[peer][1].device) for peer, t in out.items()}
+    for peer, buf in staged.items():
+        targets[peer].copy_(buf)
+
+
+def _send_recv(group, sends: dict, recvs: dict) -> dict:
+    """``_send_recv_into`` with receives given as ({group rank: (shape,
+    like)}); returns the received tensors, new, on the device of ``like``."""
+    out = {peer: torch.empty(shape, dtype=ref.dtype, device=ref.device)
+           for peer, (shape, ref) in recvs.items()}
+    _send_recv_into(group, sends, out)
     return out
 
 
@@ -146,6 +174,46 @@ def exchange_halo(x, halo, mode, mesh, axis_y: str = "y", axis_x: str = "x"):
 exchange_halo.exchanges = 0
 
 
+def refresh_apron(zp: torch.Tensor, t: int, mesh, apron, axes=("y", "x")) -> None:
+    """Write the neighbours' data into the apron of ``zp`` in place.
+
+    ``zp`` is a tile padded as ``sharded_kernel._pad_interior`` pads it:
+    ``t`` cells of the neighbour's data on each interior side (``apron``:
+    the (top, bottom, left, right) flags) and nothing on the image's border
+    sides; x takes part only where it is in ``axes``.  The y pass sends the
+    rank's first and last ``t`` owned rows over its owned columns and
+    writes the received ones above and below them; the x pass then sends
+    its first and last ``t`` owned columns over the full padded height, y
+    apron included, so that the corners hold the diagonal neighbours'
+    cells: the apron ``_pad_interior`` would build from the owned cells,
+    bit for bit.  Only the slabs move; the owned cells are read, never
+    written.  Every rank of the axes' groups calls it with the same
+    ``t``.  Counted in ``exchange_halo.exchanges``, one a call."""
+    exchange_halo.exchanges += 1
+    top, bot, left, right = apron
+    tx = t if "x" in axes else 0
+    r0, c0 = (t if top else 0), (tx if left else 0)
+    h = zp.shape[-2] - r0 - (t if bot else 0)
+    w = zp.shape[-1] - c0 - (tx if right else 0)
+    if t > h or tx > w:
+        raise ValueError(f"an apron of {t} is wider than the tile's ({h}, {w}) owned cells")
+    passes = [("y", zp.ndim - 2, r0, h, t, (top, bot), zp.narrow(-1, c0, w))]
+    if "x" in axes:
+        passes.append(("x", zp.ndim - 1, c0, w, tx, (left, right), zp))
+    for mesh_axis, dim, start, size, n, (lo, hi), view in passes:
+        if not (lo or hi):
+            continue
+        me = axis_index(mesh, mesh_axis)
+        sends, targets = {}, {}
+        if lo:   # my first owned cells -> the previous rank; its last -> my lo apron
+            sends[me - 1] = view.narrow(dim, start, n)
+            targets[me - 1] = view.narrow(dim, start - n, n)
+        if hi:   # my last owned cells -> the next rank; its first -> my hi apron
+            sends[me + 1] = view.narrow(dim, start + size - n, n)
+            targets[me + 1] = view.narrow(dim, start + size, n)
+        _send_recv_into(axis_group(mesh, mesh_axis), sends, targets)
+
+
 def gather_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """The tiles of this rank's group along mesh ``axis`` concatenated along
     ``dim`` of ``x``, in the group's rank order: every rank of the group
@@ -161,7 +229,7 @@ def gather_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     gather_axis.gathers += 1
     group = axis_group(mesh, axis)
     src = x.contiguous()
-    if _staged(group, src) or src.device.type == "cpu":   # gloo
+    if _staged(group, src) or src.device.type == "cpu":   # gloo (raises while capturing)
         host = src.to("cpu")
         parts = [torch.empty_like(host) for _ in range(p)]
         dist.all_gather(parts, host, group=group)

@@ -5,9 +5,13 @@ end of the module).
 
 Every rank runs the single-device kernel (``ops/cuda/hs_iter.py``,
 ``ops/cuda/liu_shen_iter.py``) on its tile, padded by T rows and columns of
-its neighbours' data on each interior side; between launches the halos move
-over the mesh (``halo.exchange_halo``).  On CPU tiles the kernels' plain
-versions run the same schedule.
+its neighbours' data on each interior side.  The fields are padded once a
+solve (``_pad_interior``); u and v stay padded from one launch to the next,
+the kernel's padded output being the next launch's input, and between
+launches the neighbours' T-deep slabs are written into its apron in place
+(``halo.refresh_apron``).  The solve crops once, at its end; on a one-rank
+mesh there is no apron and nothing is copied between launches.  On CPU
+tiles the kernels' plain versions run the same schedule.
 
 How the border differs from the JAX package, and why.  There the tiled HS
 kernel has no border logic, so the image's border sides get a T-deep mirror
@@ -31,10 +35,15 @@ Liu-Shen decomposes rows only, as in JAX: its tiles are whole-width stripes,
 spec ("y", None); ranks along x hold replicas.  Its stop is block-granular
 (``sharded_pallas.py:243-289``): each block runs T steps without the stop
 (``stop=False``: the apron cells hold stale values, and an err over them
-could be NaN), err of the block's last step is taken on the owned rows and
-all-reduced over y, and the host reads it to decide on the next block
-(counted in ``liu_shen_solve_sharded_kernel.err_reads``).  At max_iter the
-result is the single-device solve's bit for bit.
+could be NaN), and err of the block's last step is taken on the owned rows
+and all-reduced over y.  The stop test stays on the device, as JAX's
+``lax.while_loop`` cond does: every block of the solve is enqueued, each
+with the gate ``err of the block before > tol`` that K4/K5 reads on the
+device (a gated block runs no step and returns its input), and a gated
+block keeps the err before it.  No host read decides anything
+(``liu_shen_solve_sharded_kernel.err_reads`` stays 0), so a solve can be
+captured in a CUDA graph.  At max_iter the result is the single-device
+solve's bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +59,9 @@ from opticalflow_ri_tpu_torch.ops.cuda import (
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3_padded
 from opticalflow_ri_tpu_torch.parallel import sharded as _sh
-from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, gather_axis, reduce_over
+from opticalflow_ri_tpu_torch.parallel.halo import (
+    exchange_halo, gather_axis, reduce_over, refresh_apron,
+)
 from opticalflow_ri_tpu_torch.parallel.mesh import axis_index, axis_size
 from opticalflow_ri_tpu_torch.parallel.sharded_glue import (
     check_splits, pil_band, pil_resize_sharded,
@@ -137,21 +148,24 @@ def pick_hs_shard_t(mesh, shape) -> int | None:
 def _hs_body_shardkernel(im1, im2, u0, v0, mesh, *, alpha, niter, t_block):
     """Per-rank body: derivatives on the local tile, then niter Jacobi
     iterations in ceil(niter / T) kernel launches (T each, the remainder
-    last), one T-deep halo exchange of u and v before each."""
+    last) on u and v kept padded, their T-deep apron refreshed in place
+    before each launch but the first."""
     fx, fy, ft = _sh._hs_derivatives_local(im1, im2, mesh)
     t = int(t_block)
     h, w = im1.shape[-2], im1.shape[-1]
     edges, apron = _border_sides(mesh)
     fxp, fyp, ftp = (_pad_interior(z, t, mesh, apron) for z in (fx, fy, ft))
-    u, v = u0, v0
+    up, vp = (_pad_interior(z, t, mesh, apron) for z in (u0, v0))
     done = 0
     while done < niter:
+        if done:
+            refresh_apron(up, t, mesh, apron)
+            refresh_apron(vp, t, mesh, apron)
         k = min(t, niter - done)
-        up, vp = hs_iter.hs_iterate(fxp, fyp, ftp, _pad_interior(u, t, mesh, apron),
-                                    _pad_interior(v, t, mesh, apron), alpha, k, edges)
-        u, v = _crop(up, h, w, t, apron), _crop(vp, h, w, t, apron)
+        up, vp = hs_iter.hs_iterate(fxp, fyp, ftp, up, vp, alpha, k, edges)
         done += k
-    return u.contiguous(), v.contiguous(), _sh._flow_err(u, v, u0, v0, mesh)
+    u, v = (_crop(z, h, w, t, apron).contiguous() for z in (up, vp))
+    return u, v, _sh._flow_err(u, v, u0, v0, mesh)
 
 
 def hs_solve_sharded_kernel(mesh, im1, im2, alpha, niter, u0, v0, t_block: int | None = None):
@@ -205,36 +219,40 @@ def _ls_body_shardkernel(im1, im2, u0, v0, mesh, *, h_reg, max_iter, tol, t_bloc
     h_loc, w = im1.shape[-2], im1.shape[-1]
     edges, apron = _border_sides(mesh, _Y_ONLY)
     pad = lambda z: _pad_interior(z, t, mesh, apron, _Y_ONLY)  # noqa: E731
+    crop = lambda z: _crop(z, h_loc, w, t, apron)  # noqa: E731
     fields_p = tuple(pad(f) for f in fields)
     npix = float(h_loc * axis_size(mesh, "y") * w)
 
-    def block(u, v, k):
-        """k steps from (u, v) and the err of the last, on the owned rows."""
-        up, vp = pad(u), pad(v)
+    def block(up, vp, k, gate):
+        """k steps from the padded (up, vp) unless ``gate`` is 0 (then the
+        input itself), and the err of the last step on the owned rows."""
         if k > 1:
             up, vp = liu_shen_iter.liu_shen_iterate(h_reg, fields_p, up, vp, k - 1, 0.0,
-                                                    edges, stop=False)[:2]
+                                                    edges, stop=False, gate=gate)[:2]
         un, vn = liu_shen_iter.liu_shen_iterate(h_reg, fields_p, up, vp, 1, 0.0, edges,
-                                                stop=False)[:2]
-        before = [_crop(z, h_loc, w, t, apron) for z in (up, vp)]
-        after = [_crop(z, h_loc, w, t, apron) for z in (un, vn)]
-        sums = torch.stack([((a - b).double() ** 2).sum() for a, b in zip(after, before)])
+                                                stop=False, gate=gate)[:2]
+        sums = torch.stack([((crop(a) - crop(b)).double() ** 2).sum()
+                            for a, b in ((un, up), (vn, vp))])
         sums = reduce_over(sums, mesh, _Y_ONLY)
-        err = ((torch.sqrt(sums[0]) + torch.sqrt(sums[1])) / npix).to(torch.float32)
-        return after[0].contiguous(), after[1].contiguous(), err
+        return un, vn, ((torch.sqrt(sums[0]) + torch.sqrt(sums[1])) / npix).to(torch.float32)
 
+    # JAX's loop (sharded_pallas.py:266-290) as a fixed sequence of blocks:
+    # each runs while the err before it exceeds tol (1e8 before the first),
+    # the tail of rem steps under the same test (run_tail); a gated block
+    # returns its input and keeps the err before it, 0 when no block ran
     tol32 = float(np.float32(tol))
-    u, v = u0, v0
+    up, vp = pad(u0), pad(v0)
     err = torch.zeros((), dtype=torch.float32, device=u0.device)
-    last = float(np.float32(1e8))
+    last = torch.full((), 1e8, dtype=torch.float32, device=u0.device)
     n_full, rem = divmod(int(max_iter), t)
-    for n in [t] * n_full + ([rem] if rem else []):
-        if not last > tol32:
-            break
-        u, v, err = block(u, v, n)
-        last = float(err)   # the host reads each block's err: the stop test
-        liu_shen_solve_sharded_kernel.err_reads += 1
-    return u, v, err
+    for j, n in enumerate([t] * n_full + ([rem] if rem else [])):
+        if j:
+            refresh_apron(up, t, mesh, apron, _Y_ONLY)
+            refresh_apron(vp, t, mesh, apron, _Y_ONLY)
+        go = last > tol32
+        up, vp, e = block(up, vp, n, go.to(torch.int32))
+        err, last = torch.where(go, e, err), torch.where(go, e, last)
+    return crop(up).contiguous(), crop(vp).contiguous(), err
 
 
 def liu_shen_solve_sharded_kernel(mesh, im1, im2, h_reg, u0, v0, max_iter=60, tol=1e-8,
@@ -254,6 +272,8 @@ def liu_shen_solve_sharded_kernel(mesh, im1, im2, h_reg, u0, v0, max_iter=60, to
                                 tol=tol, t_block=t)
 
 
+# host reads of err that decide the stop: none (the stop is on the device);
+# the count is kept for the callers that check it
 liu_shen_solve_sharded_kernel.err_reads = 0
 
 

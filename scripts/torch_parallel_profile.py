@@ -6,7 +6,7 @@
 
 Joins a one-rank process group (NCCL on the card; gloo with ``--device cpu``),
 then, at ``--size``² on ``particle_image_pair(seed=0)``, times the sharded
-HS_Fs3_4 (``auto_sharded_pipeline`` route 1, forced on the one-rank mesh),
+HS_Fs3_4 (route 1 run eagerly, ``sharded_pipeline_fn``, on the one-rank mesh),
 the sharded Liu-Shen solve (h 10, 60 steps, tol 0), the rows-sharded dense
 LK (``lk_solve_sharded_kernel``, half window 13, 5 steps) and Farneback
 (``farneback_solve_sharded``, window 33, 5 iterations, one level), each
@@ -58,7 +58,7 @@ def main() -> None:
         distributed, exchange_halo, farneback_solve_sharded, liu_shen_solve_sharded,
         lk_solve_sharded_kernel, make_mesh,
     )
-    from opticalflow_ri_tpu_torch.parallel.auto import auto_sharded_pipeline
+    from opticalflow_ri_tpu_torch.parallel.auto import sharded_pipeline_fn
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
     cuda = args.device == "cuda"
@@ -71,7 +71,7 @@ def main() -> None:
     pair = [torch.as_tensor(im, device=dev)
             for im in particle_image_pair((args.size, args.size), seed=0)[:2]]
     zero = torch.zeros_like(pair[0])
-    sharded_hs = auto_sharded_pipeline("HS_Fs3_4", mesh, _force_sharded=True)
+    sharded_hs = sharded_pipeline_fn("HS_Fs3_4", mesh)
     calls = {
         "sharded HS_Fs3_4": lambda: sharded_hs(*pair),
         "eager HS_Fs3_4": lambda: run_config("HS_Fs3_4", *pair),

@@ -15,8 +15,12 @@ of K7 (global rows), K9 (stripe mode with each apron) and K12 (the four y
 masks) equal their plain versions on stripes bit for bit.  K3's
 caller-padded mode equals its plain version and the whole-image kernel
 cropped, bit for bit; route 2 of every configuration on one rank is held
-to ``run_config`` (AEE <= 5e-6).  (Four ranks on one card, over gloo with
-the halos staged through host memory, are driven by ``chip_smoke.py``'s
+to ``run_config`` (AEE <= 5e-6), through ``auto_sharded_pipeline``, which
+replays it as a CUDA graph.  The sharded graph replays equal
+``sharded_pipeline_fn`` bit for bit; a gloo group refuses CUDA tiles (in a
+child process, which can make its own process group); the gated K4/K5
+equals its plain version.  (Four ranks on one card, over gloo with the
+halos staged through host memory, are driven by ``chip_smoke.py``'s
 parallel phase.)
 """
 
@@ -266,3 +270,100 @@ def test_farneback_two_levels_on_one_nccl_rank(nccl_mesh, pair):
     got = farneback_solve_sharded(nccl_mesh, *pair, z, z, pyr_levels=2)
     want = fb.farneback_solve(*pair, z, z, pyr_levels=2)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# the sharded pipeline as one CUDA graph per tile shape
+# ---------------------------------------------------------------------------
+
+GRAPHED = ("HS_Fs3_4", "HS_Fs0_0", "PyHSchunck_Fs3_4", "HS_Fs3_4_PyrLvls2",
+           "LiuSE_HS_Fs3_4_PyrLvls2", "LK_Fs2_0_PyrLvls2", "Farneback_Fs0_0_PyrLvls2")
+
+
+@pytest.mark.parametrize("name", GRAPHED)
+def test_sharded_replay_equals_eager_on_one_nccl_rank(nccl_mesh, name):
+    """``auto_sharded_pipeline`` replays one graph per tile shape, bit for
+    bit ``sharded_pipeline_fn`` on two pairs; the second pair launches no
+    kernel from the host, and no sharded Liu-Shen err is read there."""
+    from opticalflow_ri_tpu_torch.parallel import auto_sharded_pipeline, sharded_pipeline_fn
+    from opticalflow_ri_tpu_torch.parallel.sharded_kernel import liu_shen_solve_sharded_kernel
+
+    pairs = [[torch.as_tensor(im, device="cuda")
+              for im in particle_image_pair(shape=(256, 384), seed=s)[:2]] for s in (0, 1)]
+    fn = auto_sharded_pipeline(name, nccl_mesh, _force_sharded=True)
+    eager = sharded_pipeline_fn(name, nccl_mesh)
+    assert torch.equal(torch.stack(fn(*pairs[0])), torch.stack(eager(*pairs[0])))
+    before = (hs_iter.hs_iterate.launches, liu_shen_iter.liu_shen_iterate.launches)
+    got = fn(*pairs[1])
+    assert (hs_iter.hs_iterate.launches, liu_shen_iter.liu_shen_iterate.launches) == before
+    assert torch.equal(torch.stack(got), torch.stack(eager(*pairs[1])))
+    assert liu_shen_solve_sharded_kernel.err_reads == 0
+    fn.release()
+
+
+_GLOO_CHILD = r"""
+import os, sys, torch
+from opticalflow_ri_tpu_torch.parallel import (
+    auto_sharded_pipeline, distributed, halo, make_mesh, sharded_pipeline_fn)
+from opticalflow_ri_tpu_torch.parallel.mesh import axis_group
+distributed.initialize(sys.argv[1], 1, 0, backend="gloo")
+mesh = make_mesh(shape=(1, 1, 1))
+a, b = (torch.rand((128, 128), device="cuda") * 255 for _ in range(2))
+sharded_pipeline_fn("HS_Fs3_4", mesh)(a, b)            # the eager path runs
+try:
+    auto_sharded_pipeline("HS_Fs3_4", mesh, _force_sharded=True)(a, b)
+    sys.exit("no ValueError on CUDA tiles over gloo")
+except ValueError as err:
+    assert "sharded_pipeline_fn" in str(err), err
+g = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(g):
+        halo._staged(axis_group(mesh, "y"), a)
+    sys.exit("staging through host memory was not refused during a capture")
+except RuntimeError as err:
+    assert "capture" in str(err), err
+torch.distributed.destroy_process_group()
+print("GLOO_OK")
+"""
+
+
+def test_gloo_group_refuses_cuda_tiles(tmp_path):
+    """On a gloo group ``auto_sharded_pipeline`` raises on CUDA tiles,
+    naming ``sharded_pipeline_fn``, which runs them; staging a CUDA tile
+    through host memory raises while a graph is being captured."""
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = __import__("os").path.dirname(__import__("os").path.dirname(__file__))
+    run = subprocess.run([sys.executable, "-c", _GLOO_CHILD, f"file://{tmp_path / 'rdv'}"],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0 and "GLOO_OK" in run.stdout, run.stderr[-3000:]
+
+
+@pytest.mark.parametrize("stop", [True, False], ids=["stop", "no_stop"])
+@pytest.mark.parametrize("gate", [0, 1])
+@pytest.mark.parametrize("shape,edges", [((47, 61), 15), ((333, 517), 15), ((144, 256), 0),
+                                         ((144, 256), hs_iter.TOP)])
+def test_liu_shen_gate_equals_plain(shape, edges, gate, stop):
+    """K4/K5 with a device gate: bit for bit its plain version (u, v, k;
+    err too with the stop), 0 giving (u0, v0, 0, 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    a, b = (torch.as_tensor(rng.uniform(1, 255, shape).astype(np.float32), device="cuda")
+            for _ in range(2))
+    fields = liu_shen_precompute(a / a.max(), b / b.max(), 10.0)
+    u0, v0 = (torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+              for _ in range(2))
+    g = torch.tensor(gate, dtype=torch.int32, device="cuda")
+    got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, 20, 1e-7, edges, stop, gate=g)
+    want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, 20, 1e-7, edges, stop,
+                                                gate=g)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[3]) == int(want[3]) == (0 if gate == 0 else 20 if not stop else int(got[3]))
+    if gate == 0:
+        assert torch.equal(got[0], u0) and float(got[2]) == 0.0
+    elif stop:
+        np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
