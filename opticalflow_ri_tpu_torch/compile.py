@@ -25,8 +25,8 @@ counts at capture, not at replay.
 
 ``CompiledPipeline`` takes any run function with the signature of
 ``build_config(name).run``: ``parallel.auto.auto_sharded_pipeline`` gives
-it a rank's sharded pipeline (``parallel.auto.sharded_pipeline_fn``), and
-the graphs are then keyed by (tile H, tile W, device, mesh).  The warm-up
+it a rank's sharded pipeline (``parallel.auto.sharded_pipeline_fn``) on
+one mesh, and holds one graph per (tile H, tile W, device).  The warm-up
 run of a sharded pipeline also creates the process group's communicators,
 which a capture must not do; every rank then captures the same sequence
 of collectives.
@@ -92,16 +92,14 @@ class CompiledPipeline:
     """``compiled_pipeline(name)``: ``fn(im1, im2, device="cuda") -> (U, V)``,
     fresh float32 tensors on the pair's device.  ``run`` (default: the
     config's ``build_config(name).run``) is what is warmed up, captured and
-    replayed, ``run(im1, im2, device=...) -> (U, V)``; ``key`` is added to
-    each graph's (h, w, device) key.  Not thread-safe: call it from one
-    thread at a time."""
+    replayed, ``run(im1, im2, device=...) -> (U, V)``, one graph per
+    (h, w, device).  Not thread-safe: call it from one thread at a time."""
 
-    def __init__(self, name: str, run=None, key: tuple = ()):
+    def __init__(self, name: str, run=None):
         self.name = name
         self._run = build_config(name).run if run is None else run
-        self._key = tuple(key)
-        self._graphs: dict = {}   # (h, w, device, *key) -> _Graph
-        self._warm: set = set()   # (h, w, device, *key) run once eagerly
+        self._graphs: dict = {}   # (h, w, device) -> _Graph
+        self._warm: set = set()   # (h, w, device) run once eagerly
 
     def __call__(self, im1, im2, device="cuda"):
         dev = _device_of(im1, device)
@@ -117,7 +115,7 @@ class CompiledPipeline:
         dev = _device_of(im1, device)
         if dev.type != "cuda":
             raise ValueError(f"replay runs a CUDA graph, not on {dev}")
-        key = (*_check_pair(im1, im2, 2), dev, *self._key)
+        key = (*_check_pair(im1, im2, 2), dev)
         g = self._graphs.get(key)
         if g is None:
             g = self._graphs[key] = self._capture(key, im1, im2)
@@ -131,7 +129,7 @@ class CompiledPipeline:
         shape, unless that shape is warm already.  The first call at a shape
         does this itself before it captures."""
         dev = _device_of(im1, device)
-        key = (*_check_pair(im1, im2, 2), dev, *self._key)
+        key = (*_check_pair(im1, im2, 2), dev)
         if key in self._warm or dev.type != "cuda":
             return
         with torch.cuda.device(dev):
@@ -143,7 +141,7 @@ class CompiledPipeline:
         self._warm.add(key)
 
     def _capture(self, key, im1, im2) -> _Graph:
-        h, w, dev = key[:3]
+        h, w, dev = key
         self.warm_up(im1, im2, dev)
         inputs = tuple(torch.empty((h, w), dtype=torch.float32, device=dev) for _ in range(2))
         graph = torch.cuda.CUDAGraph()

@@ -126,7 +126,7 @@ class ShardedPipeline(CompiledPipeline):
         def run(im1, im2, device):
             return fn(torch.as_tensor(im1, device=device), torch.as_tensor(im2, device=device))
 
-        super().__init__(name, run, key=(mesh,))
+        super().__init__(name, run)
         self.mesh = mesh
 
     def _check(self, im1, device):

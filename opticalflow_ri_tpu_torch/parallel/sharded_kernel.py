@@ -40,10 +40,9 @@ and all-reduced over y.  The stop test stays on the device, as JAX's
 ``lax.while_loop`` cond does: every block of the solve is enqueued, each
 with the gate ``err of the block before > tol`` that K4/K5 reads on the
 device (a gated block runs no step and returns its input), and a gated
-block keeps the err before it.  No host read decides anything
-(``liu_shen_solve_sharded_kernel.err_reads`` stays 0), so a solve can be
-captured in a CUDA graph.  At max_iter the result is the single-device
-solve's bit for bit.
+block keeps the err before it.  No host read decides anything, so a
+solve can be captured in a CUDA graph.  At max_iter the result is the
+single-device solve's bit for bit.
 """
 
 from __future__ import annotations
@@ -270,11 +269,6 @@ def liu_shen_solve_sharded_kernel(mesh, im1, im2, h_reg, u0, v0, max_iter=60, to
     im1, im2, u0, v0 = _sh._f32(im1, im2, u0, v0)
     return _ls_body_shardkernel(im1, im2, u0, v0, mesh, h_reg=h_reg, max_iter=int(max_iter),
                                 tol=tol, t_block=t)
-
-
-# host reads of err that decide the stop: none (the stop is on the device);
-# the count is kept for the callers that check it
-liu_shen_solve_sharded_kernel.err_reads = 0
 
 
 # ---------------------------------------------------------------------------

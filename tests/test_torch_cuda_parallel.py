@@ -284,9 +284,9 @@ GRAPHED = ("HS_Fs3_4", "HS_Fs0_0", "PyHSchunck_Fs3_4", "HS_Fs3_4_PyrLvls2",
 def test_sharded_replay_equals_eager_on_one_nccl_rank(nccl_mesh, name):
     """``auto_sharded_pipeline`` replays one graph per tile shape, bit for
     bit ``sharded_pipeline_fn`` on two pairs; the second pair launches no
-    kernel from the host, and no sharded Liu-Shen err is read there."""
+    kernel from the host.  The capture itself shows that the path reads no
+    tensor on the host: such a read raises while the stream captures."""
     from opticalflow_ri_tpu_torch.parallel import auto_sharded_pipeline, sharded_pipeline_fn
-    from opticalflow_ri_tpu_torch.parallel.sharded_kernel import liu_shen_solve_sharded_kernel
 
     pairs = [[torch.as_tensor(im, device="cuda")
               for im in particle_image_pair(shape=(256, 384), seed=s)[:2]] for s in (0, 1)]
@@ -297,7 +297,6 @@ def test_sharded_replay_equals_eager_on_one_nccl_rank(nccl_mesh, name):
     got = fn(*pairs[1])
     assert (hs_iter.hs_iterate.launches, liu_shen_iter.liu_shen_iterate.launches) == before
     assert torch.equal(torch.stack(got), torch.stack(eager(*pairs[1])))
-    assert liu_shen_solve_sharded_kernel.err_reads == 0
     fn.release()
 
 

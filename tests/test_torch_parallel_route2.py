@@ -82,7 +82,7 @@ meshes = {"122": m22, "141": m41}
 
 calls = {}
 def counted(key, fn):
-    @functools.wraps(fn)   # with its attributes (err_reads)
+    @functools.wraps(fn)
     def run(*a, **k):
         calls[key] = calls.get(key, 0) + 1
         return fn(*a, **k)
