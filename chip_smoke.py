@@ -146,6 +146,26 @@ dense Lucas-Kanade path and its Farneback path on the card, in phases:
                the ranks' 256^2 and 1024^2 tiles of 512^2 and 2048^2
                (``warp_padded_parity``), and timed beside the whole-image
                call (``warp_padded_ms``).
+               Both groups then run the ``biLinear=False`` (Liu-Shen) warp
+               on tiles, at 512^2 and 2048^2, on (1, 2, 2) and, with four
+               ranks, (1, 4, 1): ``liu_shen_warp_sharded`` on three flows
+               (``warp_flows``: sub-pixel, integers with collisions and
+               wrap-around, one that crosses whole tiles), every rank's
+               tile bit for bit the whole-image warp cropped, and its time
+               at 2048^2 beside the whole-image warp's (one rank: also
+               the device time of each as a replayed CUDA graph); then the
+               two-level ``biLinear=False`` pyramids (``LS_WARP_PYRAMIDS``:
+               an HS and a Liu-Shen adapter) under
+               ``kernel_sharded_solvers``, the kernel counts zeroed just
+               before each run, against the single-device driver (one
+               rank bit for bit, four AEE <= 5e-6), launching K1 or K4/K5
+               alone, each kernel call held against its plain version
+               (``kernels_against_plain``).  The one NCCL rank replays each
+               pyramid as one CUDA graph (``compile.CompiledPipeline``
+               over the run on tiles), bit for bit against the eager
+               sharded call and the single-device driver, with the replay,
+               the eager sharded call and the single-device replay timed
+               in turns.
 
 A configuration whose graph replay is not bit for bit the eager result is
 named with its difference and must stay within the whole-pipeline bar (AEE
@@ -378,6 +398,48 @@ ROUTE2_KERNELS = ("hs_jacobi", "warp_pair", "liu_shen", "lk_build", "lk_gn", "fb
 ROUTE2_AT_2048 = ("HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", "LK_Fs2_0_PyrLvls2",
                   "FB_Fs0_0_PyrLvls2")
 PARALLEL_TIMEOUT_S = 420   # one spawned group, start-up included
+# the two-level biLinear=False pyramids of the parallel phase: (pre-filter
+# sigma, the port's adapter class, its arguments; the HS adapter's own
+# defaults would set biLinear=True, so they are off), and the kernel each runs
+LS_WARP_PYRAMIDS = {"hs": (3.4, "HSOpticalFlowAlgoAdapter", ([21.0, 45.0], 100, False)),
+                    "ls": (0.0, "LiuShenOpticalFlowAlgoAdapter", (0.1,))}
+LS_WARP_KERNELS = {"hs": "hs_jacobi", "ls": "liu_shen"}
+
+
+def ls_warp_pyramid(name: str, mesh):
+    """``run(im1, im2, device="cuda") -> (U, V)``: the two-level
+    ``biLinear=False`` pyramid ``name`` of ``LS_WARP_PYRAMIDS`` with a fresh
+    adapter, on this rank's tiles under ``kernel_sharded_solvers(mesh)``,
+    or the single-device driver where ``mesh`` is None."""
+    import opticalflow_ri_tpu_torch as port
+    from opticalflow_ri_tpu_torch.parallel import kernel_sharded_solvers
+
+    sigma, cls, args = LS_WARP_PYRAMIDS[name]
+
+    def run(im1, im2, device="cuda"):
+        with contextlib.nullcontext() if mesh is None else kernel_sharded_solvers(mesh):
+            return port.generic_pyramidal_optical_flow(
+                im1, im2, sigma, getattr(port, cls)(*args), pyramidalLevels=2, biLinear=False,
+                device=device)
+
+    return run
+
+
+def warp_flows(shape, dev) -> dict:
+    """Three flows for the Liu-Shen warp on tiles, from a seed: sub-pixel;
+    integers of |d| <= 5 (collisions, and the top and left borders' negative
+    flows wrapping to the far side); and about (0.55 W, -0.7 H), which
+    crosses whole tiles."""
+    import torch
+
+    g = np.random.default_rng(11)
+    h, w = shape
+    flows = {"subpixel": (g.normal(0, 0.6, shape), g.normal(0, 0.6, shape)),
+             "integer": (g.integers(-5, 6, shape), g.integers(-5, 6, shape)),
+             "crossing": (0.55 * w + 3 * g.normal(size=shape),
+                          -0.7 * h + 3 * g.normal(size=shape))}
+    return {k: [torch.as_tensor(np.asarray(z, np.float32), device=dev) for z in f]
+            for k, f in flows.items()}
 
 
 def masked_parity(dev, rand, timed) -> dict:
@@ -1193,6 +1255,87 @@ def rank_main(argv) -> None:
         torch.cuda.empty_cache()
     torch.distributed.barrier()
 
+    # the biLinear=False (Liu-Shen) warp on tiles: the tile warp alone on
+    # three flows, each rank's tile bit for bit the whole-image warp cropped;
+    # its time at 2048^2 beside the whole-image warp's; then the two-level
+    # biLinear=False pyramids (LS_WARP_PYRAMIDS) under kernel_sharded_solvers,
+    # every kernel count zeroed just before each run and read just after,
+    # against the single-device driver, and the same run again inside
+    # kernels_against_plain (K1, K4/K5)
+    from opticalflow_ri_tpu_torch.ops.warp import liu_shen_warp
+    from opticalflow_ri_tpu_torch.parallel.sharded_glue import liu_shen_warp_sharded
+
+    ls_meshes = [m_r2] if one else [m_r2, mesh((1, 4, 1))]
+    ls_swaps = {k: route2_swaps[k] for k in ("hs_jacobi", "liu_shen")}
+    for size, p2 in ((512, pair512), (shape[0], pair)):
+        flows = warp_flows(p2[0].shape, dev)
+        for m in ls_meshes:
+            sl = distributed.local_slices(m, p2[0].shape, spec)
+            for flow, (fu, fv) in flows.items():
+                whole = liu_shen_warp(p2[0], fu, fv)
+                got = liu_shen_warp_sharded(p2[0][sl].contiguous(), fu[sl].contiguous(),
+                                            fv[sl].contiguous(), m)
+                oks = [None] * world
+                torch.distributed.all_gather_object(oks, bool(torch.equal(got, whole[sl])))
+                check(f"liu_shen_warp_sharded, {flow} flow, {size}x{size} on {list(m.shape)}, "
+                      f"against the whole-image warp cropped", all(oks),
+                      {"ls_warp": flow, "size": size, "mesh": list(m.shape),
+                       "bitwise_per_rank": oks})
+                del whole, got
+            if size == shape[0]:
+                fu, fv = flows["crossing"]
+                tf = [z[sl].contiguous() for z in (p2[0], fu, fv)]
+                t_w = timed(lambda: liu_shen_warp_sharded(*tf, m), reps=5)
+                if lead:
+                    t_1 = timed(lambda: liu_shen_warp(p2[0], fu, fv), reps=5, together=False)
+                    rec = {"ls_warp_times": "the crossing flow", "size": size,
+                           "mesh": list(m.shape), "tile_ms": t_w[0], "tile_host_ms": t_w[1],
+                           "whole_ms": t_1[0], "whole_host_ms": t_1[1]}
+                    if one:   # device time: each captured in a CUDA graph, replayed
+                        rec["tile_device_ms"] = graph_ms(lambda: liu_shen_warp_sharded(*tf, m))
+                        rec["whole_device_ms"] = graph_ms(lambda: liu_shen_warp(p2[0], fu, fv))
+                    report(rec)
+                del tf
+        del flows
+        torch.cuda.empty_cache()
+        for m in ls_meshes:
+            sl = distributed.local_slices(m, p2[0].shape, spec)
+            t2 = [im[sl].contiguous() for im in p2]
+            for name in LS_WARP_PYRAMIDS:
+                run = ls_warp_pyramid(name, m)
+                (u, v), used = route2_counts(lambda: run(*t2))
+                u, v = (distributed.gather_global(m, t, spec) for t in (u, v))
+                record = {}
+                with kernels_against_plain(ls_swaps, record):
+                    run(*t2)
+                records = [None] * world
+                torch.distributed.all_gather_object(records, record)
+                t_e = timed(lambda: run(*t2), reps=3)
+                if lead:
+                    single = ls_warp_pyramid(name, None)
+                    ref = single(*p2)
+                    t_1 = timed(lambda: single(*p2), reps=3, together=False)
+                    e = aee(to_np(u), to_np(v), to_np(ref[0]), to_np(ref[1]))
+                    launched = {k for k in route2_wrappers if used[f"{k}_launches"] > 0}
+                    plain = {k: {"calls": sum(r.get(k, {}).get("calls", 0) for r in records),
+                                 "max_abs_diff": max(r.get(k, {}).get("max_abs_diff", 0.0)
+                                                     for r in records)} for k in ls_swaps}
+                    bitwise = same((u, v), ref)
+                    check(f"biLinear=False pyramid ({name}) on {list(m.shape)} at {size}x{size} "
+                          f"against the single-device driver",
+                          (bitwise if one else e <= AEE_BAR)
+                          and launched == {LS_WARP_KERNELS[name]},
+                          {"ls_warp_pyramid": name, "size": size, "mesh": list(m.shape),
+                           "bitwise": bitwise, "aee": e, "max_abs_diff": max_diff((u, v), ref),
+                           "kernels": sorted(launched), "plain": plain,
+                           "sharded_ms": t_e[0], "sharded_host_ms": t_e[1],
+                           "single_ms": t_1[0], "single_host_ms": t_1[1], **used})
+                    del ref
+                del u, v
+            del t2
+            torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
     if one:
         # the sharded pipeline as one CUDA graph per tile shape
         # (auto_sharded_pipeline, _force_sharded on the one rank): every
@@ -1254,6 +1397,52 @@ def rank_main(argv) -> None:
                 check(f"auto_sharded_pipeline({name!r}) replayed at {size}x{size} against "
                       f"sharded_pipeline_fn and run_config", rec["bitwise_eager"]
                       and rec["bitwise_run_config"] and rec["replay_launches"] == 0, rec)
+                graph.release()
+                single.release()
+                del got, want, ref, again, graph
+            torch.cuda.empty_cache()
+
+        # the biLinear=False pyramids as one CUDA graph per tile shape
+        # (compile.CompiledPipeline over the run on tiles), bit for bit
+        # against the eager sharded call and the single-device driver, the
+        # kernels counted during the capture alone; the replay, the eager
+        # sharded call and the single-device run's replay timed in turns
+        from opticalflow_ri_tpu_torch.compile import CompiledPipeline
+
+        for size, p2 in ((512, pair512), (shape[0], pair)):
+            for name in LS_WARP_PYRAMIDS:
+                eager = ls_warp_pyramid(name, m_r2)
+                graph = CompiledPipeline(f"biLinear=False {name}, sharded", eager)
+                single = CompiledPipeline(f"biLinear=False {name}",
+                                          ls_warp_pyramid(name, None))
+                t0 = time.perf_counter()
+                graph.warm_up(*p2)
+                got, captured = route2_counts(lambda: graph(*p2))
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t0
+                want = eager(*p2)
+                ref = ls_warp_pyramid(name, None)(*p2)
+                again, replayed = route2_counts(lambda: graph(*p2))
+                single(*p2)   # its capture, before the turns
+                t = turns({"replay": lambda: graph(*p2), "eager": lambda: eager(*p2),
+                           "single_replay": lambda: single(*p2)})
+                rec = {"ls_warp_graph": name, "size": size,
+                       "bitwise_eager": same(got, want) and same(again, want),
+                       "bitwise_single": same(got, ref),
+                       "max_abs_diff_single": max_diff(got, ref),
+                       "capture": {k: c for k, c in captured.items() if c},
+                       "replay_launches": sum(replayed[f"{k}_launches"]
+                                              for k in route2_wrappers),
+                       "warm_up_and_capture_s": capture_s,
+                       "replay_ms": t["replay"][0], "replay_host_ms": t["replay"][1],
+                       "eager_sharded_ms": t["eager"][0], "eager_sharded_host_ms": t["eager"][1],
+                       "single_replay_ms": t["single_replay"][0],
+                       "single_replay_host_ms": t["single_replay"][1], "reps": 10}
+                check(f"the biLinear=False pyramid ({name}) replayed at {size}x{size} against "
+                      f"the eager sharded call and the single-device driver",
+                      rec["bitwise_eager"] and rec["bitwise_single"]
+                      and rec["replay_launches"] == 0
+                      and captured[f"{LS_WARP_KERNELS[name]}_launches"] > 0, rec)
                 graph.release()
                 single.release()
                 del got, want, ref, again, graph
@@ -2377,6 +2566,48 @@ def main() -> None:
                       for name in ROUTE2_KERNELS}
         if min(graph_runs.values()) < 1:
             raise AssertionError(f"a kernel of routes 1 and 2 is in no sharded graph: {graph_runs}")
+        # the biLinear=False path: the tile warp bit for bit at every flow,
+        # size and mesh, and the pyramids' K1 and K4/K5 launches (the counts
+        # zeroed just before each run) and calls held against their plain
+        # versions, in both groups; their graphs on the one NCCL rank
+        ls_launches = {k: {} for k in LS_WARP_KERNELS.values()}
+        ls_plain = {k: {} for k in LS_WARP_KERNELS.values()}
+        ls_checks = {}
+        for group, glines, n_mesh in (("nccl_1_rank", nccl_lines, 1), ("gloo_4_ranks", lines, 2)):
+            recs = [json.loads(line) for line in glines if line.startswith("{")]
+            warps = [r for r in recs if "ls_warp" in r]
+            pyrs = [r for r in recs if "ls_warp_pyramid" in r]
+            ls_checks[group] = {"tile_warps": len(warps), "pyramids": len(pyrs)}
+            if len(warps) != 3 * 2 * n_mesh or len(pyrs) != 2 * 2 * n_mesh or not all(
+                    r["ok"] for r in warps + pyrs):
+                raise AssertionError(f"the {group} group ran {len(warps)} tile warps and "
+                                     f"{len(pyrs)} biLinear=False pyramids, {6 * n_mesh} and "
+                                     f"{4 * n_mesh} expected, or one disagreed")
+            for rec in pyrs:
+                for name, per in ls_launches.items():
+                    per[group] = per.get(group, 0) + rec[f"{name}_launches"]
+                for name, per in rec["plain"].items():
+                    got = ls_plain[name].setdefault(group, {"calls": 0, "max_abs_diff": 0.0})
+                    got["calls"] += per["calls"]
+                    got["max_abs_diff"] = max(got["max_abs_diff"], per["max_abs_diff"])
+        if any(len(per) != 2 or min(per.values()) < 1 for per in ls_launches.values()) or any(
+                len(per) != 2 or min(g["calls"] for g in per.values()) < 1
+                or max(g["max_abs_diff"] for g in per.values()) != 0.0
+                for per in ls_plain.values()):
+            raise AssertionError(f"K1 or K4/K5 was not launched by the biLinear=False pyramids "
+                                 f"of both groups, or differed from its plain version: "
+                                 f"launches {ls_launches}, plain {ls_plain}")
+        ls_graphs = [r for r in (json.loads(line) for line in nccl_lines if line.startswith("{"))
+                     if "ls_warp_graph" in r]
+        if len(ls_graphs) != 2 * len(LS_WARP_PYRAMIDS) or not all(r["ok"] for r in ls_graphs):
+            raise AssertionError(f"the one NCCL rank replayed {len(ls_graphs)} biLinear=False "
+                                 f"graphs, {2 * len(LS_WARP_PYRAMIDS)} expected, or one disagreed")
+        ls_graph_runs = {name: sum(1 for r in ls_graphs
+                                   if r["capture"].get(f"{name}_launches", 0) > 0)
+                         for name in LS_WARP_KERNELS.values()}
+        print(json.dumps({"parallel": "biLinear=False", "checks": ls_checks,
+                          "launches": ls_launches, "plain": ls_plain,
+                          "graph_runs": ls_graph_runs, "gpu": gpu}), flush=True)
         print(json.dumps({"parallel": "sharded graphs, one NCCL rank", "runs": len(graphs),
                           "route1_runs": sum(r["route"] == 1 for r in graphs),
                           "route2_runs": sum(r["route"] == 2 for r in graphs),
@@ -2454,6 +2685,11 @@ def main() -> None:
             kern["gated_max_abs_err"] = gated_err
         if name in graph_runs:  # sharded runs replayed as one CUDA graph
             kern["sharded_graph_runs"] = graph_runs[name]
+        if name in ls_launches:   # the biLinear=False pyramids on tiles
+            kern["ls_warp_launches"] = ls_launches[name]
+            kern["ls_warp_max_abs_err"] = max(g["max_abs_diff"] for g in ls_plain[name].values())
+            kern["ls_warp_checked_calls"] = {g: per["calls"] for g, per in ls_plain[name].items()}
+            kern["ls_warp_graph_runs"] = ls_graph_runs[name]
         if name in route2_launches:
             kern["route2_launches"] = route2_launches[name]
             kern["route2_max_abs_err"] = max(g["max_abs_diff"]

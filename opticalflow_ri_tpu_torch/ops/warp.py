@@ -20,11 +20,16 @@ from __future__ import annotations
 import torch
 
 from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
-from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter
+from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter_px
 from opticalflow_ri_tpu_torch.ops.cuda.warp_tent import displacement_warp_tent
 
 __all__ = ["bilinear_warp_rounded", "displacement_warp_tent", "symmetric_warp_pair",
-           "liu_shen_warp"]
+           "liu_shen_warp", "liu_shen_destinations"]
+
+# liu_shen_warp's Gaussian of the residual flow: sigma 1.8 truncated at 20
+# sigma (``ops/warp.py:167-168`` there), 73 taps, a radius of 36
+LS_WARP_SIGMA = 0.6 * 3
+LS_WARP_TAPS = 2 * int(4.0 / 0.6 * 3 * LS_WARP_SIGMA + 0.5) + 1
 
 
 def bilinear_warp_rounded(img: torch.Tensor, coords_y: torch.Tensor,
@@ -71,6 +76,21 @@ def symmetric_warp_pair(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
     return w1, w2
 
 
+def liu_shen_destinations(rows: torch.Tensor, cols: torch.Tensor, u: torch.Tensor,
+                          v: torch.Tensor, h: int, w: int):
+    """(dst, ui, vi) of ``liu_shen_warp``'s scatter: the row-major index in
+    the (h, w) image that the sources at (rows, cols) move to, by
+    floor(d + 0.5), negative indices wrapping and the high end clipped, and
+    the rounded flow itself."""
+    ui = torch.floor(u + 0.5)
+    vi = torch.floor(v + 0.5)
+    xdst = cols + ui.to(torch.int64)
+    ydst = rows + vi.to(torch.int64)
+    xdst = torch.where(xdst < 0, xdst + w, xdst).clamp(0, w - 1)
+    ydst = torch.where(ydst < 0, ydst + h, ydst).clamp(0, h - 1)
+    return ydst * w + xdst, ui, vi
+
+
 def liu_shen_warp(im1: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Optical-flow-equation warp of im1 by (u, v) (``ops/warp.py:142-174``):
     shift by floor(d + 0.5), negative indices wrapping and the high end
@@ -79,23 +99,17 @@ def liu_shen_warp(im1: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.
     h, w = im1.shape[-2], im1.shape[-1]
     ys = torch.arange(h, device=im1.device)[:, None].expand(h, w)
     xs = torch.arange(w, device=im1.device)[None, :].expand(h, w)
-
-    ui = torch.floor(u + 0.5)
-    vi = torch.floor(v + 0.5)
-    xdst = xs + ui.to(torch.int64)
-    ydst = ys + vi.to(torch.int64)
-    xdst = torch.where(xdst < 0, xdst + w, xdst).clamp(0, w - 1)
-    ydst = torch.where(ydst < 0, ydst + h, ydst).clamp(0, h - 1)
+    dst, ui, vi = liu_shen_destinations(ys, xs, u, v, h, w)
     # last writer wins: each destination takes its largest source index
-    dst = (ydst * w + xdst).reshape(-1)
+    dst = dst.reshape(-1)
     src = torch.arange(h * w, device=im1.device)
     winner = torch.full((h * w,), -1, dtype=torch.int64, device=im1.device).scatter_reduce(
         0, dst, src, "amax")
     flat = im1.reshape(-1)
     shifted = torch.where(winner >= 0, flat[winner.clamp_min(0)], flat).reshape(h, w)
 
-    du = gaussian_filter(u - ui, 0.6 * 3, 4.0 / 0.6 * 3)
-    dv = gaussian_filter(v - vi, 0.6 * 3, 4.0 / 0.6 * 3)
+    du = gaussian_filter_px(u - ui, LS_WARP_SIGMA, LS_WARP_TAPS)
+    dv = gaussian_filter_px(v - vi, LS_WARP_SIGMA, LS_WARP_TAPS)
 
     t_dx = shifted[:-1, 1:] * du[:-1, 1:] - shifted[:-1, :-1] * du[:-1, :-1]
     t_dy = shifted[1:, :-1] * dv[1:, :-1] - shifted[:-1, :-1] * dv[:-1, :-1]

@@ -22,10 +22,11 @@ rank's LOCAL tiles:
     four adapters their kernel-sharded solves; ``sharded_pipeline_fn``
     runs every configuration that way eagerly (route 2), the single-level
     HS ones on route 1, and ``auto_sharded_pipeline`` replays it as one
-    CUDA graph per tile shape on NCCL (``auto.py``).
-
-Not ported: ``liu_shen_warp`` (``biLinear=False``, no configuration) on a
-mesh of more than one rank raises (ROADMAP.md, Queue 1).
+    CUDA graph per tile shape on NCCL (``auto.py``).  The pyramid's
+    ``biLinear=False`` warp has a tile form too
+    (``sharded_glue.liu_shen_warp_sharded``): ``generic_pyramidal_optical_flow
+    (..., biLinear=False)`` under the context runs on tiles, eagerly or
+    through ``compile.CompiledPipeline`` as one CUDA graph a tile shape.
 """
 
 from opticalflow_ri_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for

@@ -26,15 +26,19 @@ every rank of the mesh calls it with tiles of one shape.
     equals the whole-image warp cropped to the tile bit for bit.
   * ``prefilter_sharded`` (route 1's too): the calibrated Gaussian with
     symmetric halos, bit for bit the single-device one.
+  * ``liu_shen_warp_sharded`` (``biLinear=False``): the scatter by the flow,
+    which wraps around the whole image and has no reach bound, as one max
+    all-reduce of an image-sized buffer of keys; then the residual's
+    Gaussian with a 36-cell apron and the correction from a one-cell
+    apron.  It equals the whole-image warp cropped to the tile bit for
+    bit; a tile smaller than 36 cells a side raises ``ValueError``.
 
 A matmul over a sliced or gathered K need not add in the single-device
 order, so a resize on tiles may differ from the whole-image one in the last
-bits; the warp and the pre-filters do not.
+bits; the warps and the pre-filters do not.
 
 Every level's global shape must split over the mesh: a shape that does not
-raises ``ValueError``.  ``liu_shen_warp`` (``biLinear=False``) scatters by
-the flow with wrap-around, a global operation: on a mesh of more than one
-rank it raises ``NotImplementedError`` (no configuration uses it).
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ import torch
 from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
 from opticalflow_ri_tpu_torch.ops.gaussian import prepare_gaussian_kernel
 from opticalflow_ri_tpu_torch.ops.resize import pil_resize_matrix, spline_resize_matrix
-from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, gather_axis
+from opticalflow_ri_tpu_torch.ops.warp import LS_WARP_SIGMA, LS_WARP_TAPS, liu_shen_destinations
+from opticalflow_ri_tpu_torch.parallel.halo import exchange_halo, gather_axis, reduce_over
 from opticalflow_ri_tpu_torch.parallel.mesh import axis_index, axis_size
 from opticalflow_ri_tpu_torch.utils.device import device_constant
 
@@ -185,16 +190,50 @@ def prefilter_sharded(im, sigma, ksize, mesh):
 
 
 def liu_shen_warp_sharded(im1, u, v, mesh):
-    """``ops.warp.liu_shen_warp`` scatters by the flow with wrap-around: not
-    ported to tiles (ROADMAP.md, Queue 1).  Raises on a mesh of more than
-    one rank; a one-rank mesh runs the single-device warp."""
-    if mesh.size() > 1:
-        raise NotImplementedError(
-            "liu_shen_warp (biLinear=False) on a mesh of more than one rank: the scatter by the "
-            "flow wraps around the whole image and has no tile form yet (ROADMAP.md, Queue 1)")
-    from opticalflow_ri_tpu_torch.ops.warp import liu_shen_warp
+    """``ops.warp.liu_shen_warp`` on this rank's tiles: the whole-image warp
+    cropped to the tile, bit for bit, for every flow.
 
-    return liu_shen_warp(im1, u, v)
+    The scatter has no reach bound (the flow sets how far a pixel moves,
+    and a negative destination wraps to the image's far side), so it runs
+    in the whole image's index space: each rank scatter-maxes its sources
+    into an (H * W) buffer, one max all-reduce over y and x combines the
+    ranks' buffers, and each rank keeps its own tile of it.  A source's key
+    is its global row-major index in the high 32 bits and its intensity's
+    bits in the low 32: the largest key at a destination is the last
+    writer's and carries its pixel, so nothing else is fetched.  Then the
+    residual flow's 73-tap Gaussian with a 36-cell symmetric apron
+    (``prefilter_sharded``), and the correction from one cell of the lower
+    and right neighbours, off on the image's last row and column.  Nothing
+    is read on the host.  A tile shorter or narrower than the Gaussian's
+    radius raises ``ValueError``."""
+    (_, iy), (_, ix) = _split(mesh, _SPATIAL)
+    img_h, img_w = global_shape(im1.shape, mesh)
+    h, w = im1.shape[-2], im1.shape[-1]
+    radius = LS_WARP_TAPS // 2
+    if h < radius or w < radius:
+        raise ValueError(f"liu_shen_warp (biLinear=False) on tiles: a tile of {(h, w)} is "
+                         f"smaller than the residual Gaussian's radius, {radius} cells a side")
+    dev = im1.device
+    rows = (iy * h + torch.arange(h, device=dev))[:, None]
+    cols = (ix * w + torch.arange(w, device=dev))[None, :]
+
+    dst, ui, vi = liu_shen_destinations(rows, cols, u, v, img_h, img_w)
+    bits = im1.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = ((rows * img_w + cols) << 32) | bits
+    won = torch.full((img_h * img_w,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, dst.reshape(-1), key.reshape(-1), "amax")
+    won = reduce_over(won, mesh, _SPATIAL, op="max").view(img_h, img_w)
+    won = won[iy * h:(iy + 1) * h, ix * w:(ix + 1) * w]
+    low = won & 0xFFFFFFFF
+    pixel = (low - ((low >> 31) << 32)).to(torch.int32).view(torch.float32)
+    shifted = torch.where(won >= 0, pixel, im1)
+
+    du, dv = prefilter_sharded(torch.stack([u - ui, v - vi]), LS_WARP_SIGMA, LS_WARP_TAPS, mesh)
+    p = exchange_halo(torch.stack([shifted, du, dv]), ((0, 1), (0, 1)), "constant", mesh)
+    t_dx = p[0, :h, 1:] * p[1, :h, 1:] - shifted * du
+    t_dy = p[0, 1:, :w] * p[2, 1:, :w] - shifted * dv
+    inner = (rows < img_h - 1) & (cols < img_w - 1)
+    return torch.where(inner, shifted + -(t_dx + t_dy), shifted)
 
 
 class TileGlue:

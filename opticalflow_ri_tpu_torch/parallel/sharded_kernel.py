@@ -41,8 +41,10 @@ and all-reduced over y.  The stop test stays on the device, as JAX's
 with the gate ``err of the block before > tol`` that K4/K5 reads on the
 device (a gated block runs no step and returns its input), and a gated
 block keeps the err before it.  No host read decides anything, so a
-solve can be captured in a CUDA graph.  At max_iter the result is the
-single-device solve's bit for bit.
+solve can be captured in a CUDA graph.  The one exception is gloo with
+CUDA tiles, which stages err through host memory and is never captured:
+there the loop reads the test and enqueues no block after the stop.  At
+max_iter the result is the single-device solve's bit for bit.
 """
 
 from __future__ import annotations
@@ -57,11 +59,12 @@ from opticalflow_ri_tpu_torch.ops.cuda import (
 )
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3_padded
+from opticalflow_ri_tpu_torch.parallel import halo
 from opticalflow_ri_tpu_torch.parallel import sharded as _sh
 from opticalflow_ri_tpu_torch.parallel.halo import (
     exchange_halo, gather_axis, reduce_over, refresh_apron,
 )
-from opticalflow_ri_tpu_torch.parallel.mesh import axis_index, axis_size
+from opticalflow_ri_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
 from opticalflow_ri_tpu_torch.parallel.sharded_glue import (
     check_splits, pil_band, pil_resize_sharded,
 )
@@ -238,17 +241,23 @@ def _ls_body_shardkernel(im1, im2, u0, v0, mesh, *, h_reg, max_iter, tol, t_bloc
     # JAX's loop (sharded_pallas.py:266-290) as a fixed sequence of blocks:
     # each runs while the err before it exceeds tol (1e8 before the first),
     # the tail of rem steps under the same test (run_tail); a gated block
-    # returns its input and keeps the err before it, 0 when no block ran
+    # returns its input and keeps the err before it, 0 when no block ran.
+    # Where the group stages CUDA tiles through host memory (gloo, never
+    # captured), err has passed through the host already: there the test
+    # is read and no block after the stop is enqueued, the same result.
     tol32 = float(np.float32(tol))
+    read_stop = axis_size(mesh, "y") > 1 and halo._staged(axis_group(mesh, "y"), u0)
     up, vp = pad(u0), pad(v0)
     err = torch.zeros((), dtype=torch.float32, device=u0.device)
     last = torch.full((), 1e8, dtype=torch.float32, device=u0.device)
     n_full, rem = divmod(int(max_iter), t)
     for j, n in enumerate([t] * n_full + ([rem] if rem else [])):
+        go = last > tol32
+        if read_stop and not bool(go):
+            break
         if j:
             refresh_apron(up, t, mesh, apron, _Y_ONLY)
             refresh_apron(vp, t, mesh, apron, _Y_ONLY)
-        go = last > tol32
         up, vp, e = block(up, vp, n, go.to(torch.int32))
         err, last = torch.where(go, e, err), torch.where(go, e, last)
     return crop(up).contiguous(), crop(vp).contiguous(), err

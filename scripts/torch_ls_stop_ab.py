@@ -22,9 +22,10 @@ Each call starts after a barrier; rank 0 reports CUDA-event ms and host ms,
 medians of ``--reps`` after one warm-up, the sha256 of its (u, v) tiles
 (the trees must agree bit for bit) and, where the tree counts them
 (``liu_shen_solve_sharded_kernel.err_reads``, one host read of err a block
-run), the blocks run per call.  The kernels of each tree are built once
-before its first group.  Output: one JSON line per group, then the A/B
-summary, also written to ``chiprun_out/ls_stop_ab.json``.
+run), the blocks run per call, and K4/K5's launches per call (its wrapper's
+count: a block enqueued, run or gated, launches it).  The kernels of each
+tree are built once before its first group.  Output: one JSON line per
+group, then the A/B summary, also written to ``chiprun_out/ls_stop_ab.json``.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ def _rank(args) -> None:
     import torch
 
     from opticalflow_ri_tpu_torch.configs import CONFIGS
+    from opticalflow_ri_tpu_torch.ops.cuda import liu_shen_iter
     from opticalflow_ri_tpu_torch.parallel import auto, distributed, make_mesh
     from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
@@ -72,6 +74,9 @@ def _rank(args) -> None:
     def reads():
         return getattr(sk.liu_shen_solve_sharded_kernel, "err_reads", None)
 
+    def launches():   # K4/K5's wrapper count (0 on CPU tiles, which run its plain version)
+        return liu_shen_iter.liu_shen_iterate.launches
+
     def sync():
         if cuda:
             torch.cuda.synchronize()
@@ -92,13 +97,15 @@ def _rank(args) -> None:
         return out, None, host
 
     def timed(call):
-        before = reads()
+        before, launched = reads(), launches()
         out = one(call)[0]   # warm-up
         blocks = None if before is None else reads() - before
+        launched = launches() - launched
         runs = [one(call)[1:] for _ in range(args.reps)]
         digest = hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes() for t in out[:2]))
         return {"event_ms": statistics.median(r[0] for r in runs) if cuda else None,
                 "host_ms": statistics.median(r[1] for r in runs), "blocks": blocks,
+                "liu_shen_launches": launched,
                 "sha256": digest.hexdigest()}
 
     times = {}
@@ -200,6 +207,7 @@ def main() -> None:
         summary[label] = {
             "event_ms": [p["event_ms"] for p in per], "host_ms": [p["host_ms"] for p in per],
             "parent_blocks": per[0]["blocks"],
+            "liu_shen_launches": [p["liu_shen_launches"] for p in per],
             "bitwise": len({p["sha256"] for p in per}) == 1}
     result = {"ls_stop_ab": summary, "order": [s for s, _ in order], "size": args.size,
               "reps": args.reps, "ranks": f"{WORLD} gloo ranks sharing one {args.device}",

@@ -21,8 +21,14 @@ spawn_ranks``: children that never import jax).  Each rank runs:
       160 x 128 pair, with ``torch.Tensor.item``, ``__float__``,
       ``__int__``, ``__bool__``, ``tolist`` and ``numpy`` made to raise:
       a path that reads a tensor on the host could not be captured;
+      The two-level ``biLinear=False`` pyramids (HS and Liu-Shen adapters,
+      the tile form of ``liu_shen_warp``) run under the same guard;
   (d) ``auto_sharded_pipeline`` on the same CPU tiles (the eager function
-      there), gathered to rank 0 for the comparison with JAX.
+      there), gathered to rank 0 for the comparison with JAX;
+  (e) the solve of (a) with ``halo._staged`` made true, as on gloo with
+      CUDA tiles, where the loop reads the stop on the host: the same
+      result as the device-gated solve, and K4/K5 calls for the blocks
+      before the stop only.
 
 Bars: everything in (a)-(d) bit for bit within the port; against JAX's
 ``auto_sharded_pipeline`` (its default route on the conftest's CPU
@@ -41,19 +47,26 @@ from test_torch_parallel import spawn_ranks
 
 GUARDED = ("HS_Fs3_4", "PyHSchunck_Fs3_4_PyrLvls2", "LK_Fs2_0", "Farneback_Fs0_0",
            "LiuSE_HS_Fs3_4_PyrLvls2")
+# the two-level biLinear=False pyramids, run under the guard beside the configs
+LS_WARP_GUARDED = ("biLinear_False_HS", "biLinear_False_LiuShen")
 STOPS = ("first", "middle", "last_full", "tail", "never", "none")
+# the stops of (e) and the blocks run before each
+STAGED_STOPS = {"first": 1, "middle": 2, "never": 4, "none": 0}
 
 _CHILD = r"""
 import json, os, sys
 rank, world, init, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-GUARDED = json.loads(sys.argv[5])
+GUARDED, STAGED_STOPS = json.loads(sys.argv[5]), json.loads(sys.argv[6])
 import numpy as np
 import torch
 torch.set_num_threads(1)
+from opticalflow_ri_tpu_torch import (
+    HSOpticalFlowAlgoAdapter, LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow)
 from opticalflow_ri_tpu_torch.ops.cuda import hs_iter, liu_shen_iter
 from opticalflow_ri_tpu_torch.parallel import distributed as D
+from opticalflow_ri_tpu_torch.parallel import halo
 from opticalflow_ri_tpu_torch.parallel import (
-    auto_sharded_pipeline, make_mesh, sharded_pipeline_fn)
+    auto_sharded_pipeline, kernel_sharded_solvers, make_mesh, sharded_pipeline_fn)
 from opticalflow_ri_tpu_torch.parallel import sharded as _sh
 from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
 from opticalflow_ri_tpu_torch.parallel.halo import reduce_over, refresh_apron
@@ -217,6 +230,16 @@ facts["guarded"] = {}
 # the guard catches the parent's Liu-Shen loop, which read err on the host
 facts["guard_control"] = guarded(lambda: _parent_ls(r1, r2, rz, rz, m41, h_reg=10.0,
                                                     max_iter=STEPS, tol=0.0, t_block=T))[1]
+def ls_warp_pyramid(adapter, sigma):
+    def run(a, b):
+        with kernel_sharded_solvers(m22):
+            return generic_pyramidal_optical_flow(a, b, sigma, adapter(), pyramidalLevels=2,
+                                                  biLinear=False)
+    return run
+for name, adapter, sigma in (
+        ("biLinear_False_HS", lambda: HSOpticalFlowAlgoAdapter([21.0, 45.0], 100, False), 3.4),
+        ("biLinear_False_LiuShen", lambda: LiuShenOpticalFlowAlgoAdapter(0.1), 0.0)):
+    facts["guarded"][name] = guarded(lambda: ls_warp_pyramid(adapter, sigma)(a, b))[1]
 for name in GUARDED:
     fn = sharded_pipeline_fn(name, m22)
     flow, facts["guarded"][name] = guarded(lambda: fn(a, b))
@@ -228,6 +251,32 @@ for name in GUARDED:
         g = D.gather_global(m22, t, yx)
         if lead:
             arrays[f"{name}_{k}"] = g.numpy()
+
+# (e) gloo with CUDA tiles stages err through host memory, and there the
+# loop reads the stop: the staging predicate made true on these CPU ranks,
+# against the same solve stopped on the device; K4/K5 calls counted
+ls_calls = [0]
+ls_kernel = liu_shen_iter.liu_shen_iterate
+def ls_counted(*args, **kw):
+    ls_calls[0] += 1
+    return ls_kernel(*args, **kw)
+liu_shen_iter.liu_shen_iterate = ls_counted
+facts["staged_stop"] = {}
+for where in STAGED_STOPS:
+    tol = stops[where][0]
+    ls_calls[0] = 0
+    gated = solve(STEPS, tol)
+    gated_calls = ls_calls[0]
+    staged = halo._staged
+    halo._staged = lambda group, t: True
+    try:
+        ls_calls[0] = 0
+        got = solve(STEPS, tol)
+    finally:
+        halo._staged = staged
+    facts["staged_stop"][where] = every({"same": same(got, gated), "calls": ls_calls[0],
+                                         "gated_calls": gated_calls})
+liu_shen_iter.liu_shen_iterate = ls_kernel
 
 if lead:
     for k, arr in arrays.items():
@@ -245,7 +294,7 @@ def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parallel_graph")
     out = tmp / "out"
     out.mkdir()
-    spawn_ranks(_CHILD, tmp, out, json.dumps(GUARDED), timeout=300)
+    spawn_ranks(_CHILD, tmp, out, json.dumps(GUARDED), json.dumps(STAGED_STOPS), timeout=300)
     with open(out / "facts.json") as f:
         facts = json.load(f)
     return facts, (lambda name: np.load(out / f"{name}.npy"))
@@ -311,7 +360,7 @@ def test_ls_body_equals_parent_loop(ranks, case):
 # (c) no host read on routes 1 and 2; (d) auto_sharded_pipeline
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", GUARDED)
+@pytest.mark.parametrize("name", GUARDED + LS_WARP_GUARDED)
 def test_sharded_pipeline_reads_nothing_on_the_host(ranks, name):
     """The run completes under the guard, which does catch a host read:
     the parent's Liu-Shen loop raised under it."""
@@ -346,6 +395,22 @@ def test_auto_matches_jax_auto_sharded_pipeline(ranks, name):
         assert bulk > 0.99, bulk
     else:
         assert float(np.mean(np.hypot(u - uj, v - vj))) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# (e) the stop read on the host where gloo stages CUDA tiles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("where", list(STAGED_STOPS))
+def test_staged_stop_enqueues_no_block_after_it(ranks, where):
+    """With the staging predicate true, a solve stopped after block 1 (or
+    2, never, or before any) makes the K4/K5 calls of the blocks before
+    the stop only, two a block, where the device-gated solve makes those of
+    all four; u, v and err equal the device-gated solve's bit for bit on
+    every rank."""
+    for rec in ranks[0]["staged_stop"][where]:
+        assert rec["same"], rec
+        assert rec["calls"] == 2 * STAGED_STOPS[where] and rec["gated_calls"] == 8, rec
 
 
 # ---------------------------------------------------------------------------

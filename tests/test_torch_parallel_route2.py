@@ -55,21 +55,31 @@ ENTRIES = {
     "LiuSE_FB_Fs0_0_PyrLvls2": {"ls"},
 }
 
+# the two-level biLinear=False pyramids: (pre-filter sigma, the adapter
+# class of either package, its arguments); the HS adapter's own defaults
+# would set biLinear=True, so they are off
+LS_WARP_PYRAMIDS = {"hs": (3.4, "HSOpticalFlowAlgoAdapter", ([21.0, 45.0], 100, False)),
+                    "ls": (0.0, "LiuShenOpticalFlowAlgoAdapter", (0.1,))}
+
 _CHILD = r"""
 import functools, json, os, sys
 rank, world, init, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 ROUTE2, ROWS = json.loads(sys.argv[5]), json.loads(sys.argv[6])
+LS_WARP_PYRAMIDS = json.loads(sys.argv[7])
 import numpy as np
 import torch
 torch.set_num_threads(1)
+import opticalflow_ri_tpu_torch
 from opticalflow_ri_tpu_torch import LiuShenOpticalFlowAlgoAdapter, generic_pyramidal_optical_flow
 from opticalflow_ri_tpu_torch.models.lucas_kanade import evaluate_vorticity_asym
 from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
+from opticalflow_ri_tpu_torch.ops.warp import liu_shen_warp
 from opticalflow_ri_tpu_torch.parallel import distributed as D
 from opticalflow_ri_tpu_torch.parallel import (
     exchange_halo, farneback_solve_sharded, gather_axis, kernel_sharded_solvers, make_mesh)
 from opticalflow_ri_tpu_torch.parallel import sharded_kernel as sk
 from opticalflow_ri_tpu_torch.parallel.auto import auto_sharded_pipeline
+from opticalflow_ri_tpu_torch.parallel.sharded_glue import liu_shen_warp_sharded
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
 D.initialize(init, world, rank, device="cpu")
@@ -131,8 +141,32 @@ flows = {"ccw": (-(yy - 80) * 1e-2, (xx - 64) * 1e-2), "cw": ((yy - 80) * 1e-2, 
 facts["asym"] = {k: list(evaluate_vorticity_asym(*tiles(m22, yx, *f), True, m22))
                  for k, f in flows.items()}
 
-# the raises: the biLinear=False warp on a mesh, batch=True
-a, b = tiles(m22, yx, im1, im2)
+# the biLinear=False (Liu-Shen) warp on tiles, three flows, and the
+# two-level biLinear=False driver with each adapter, on both meshes
+H, W = im1.shape
+frng = np.random.default_rng(11)
+warp_flows = {
+    "subpixel": (frng.normal(0, 0.6, (H, W)), frng.normal(0, 0.6, (H, W))),
+    "integer": (frng.integers(-5, 6, (H, W)), frng.integers(-5, 6, (H, W))),
+    "crossing": (70.3 + 3 * frng.normal(size=(H, W)), -90.2 + 3 * frng.normal(size=(H, W)))}
+warp_flows = {k: [np.asarray(z, np.float32) for z in f] for k, f in warp_flows.items()}
+
+def pyramid_adapter(name):
+    cls, args = LS_WARP_PYRAMIDS[name][1:]
+    return getattr(opticalflow_ri_tpu_torch, cls)(*args)
+
+for mname, m in meshes.items():
+    for flow, (fu, fv) in warp_flows.items():
+        keep(f"lsw_{flow}_{mname}", m, yx, liu_shen_warp_sharded(*tiles(m, yx, im1, fu, fv), m))
+    a, b = tiles(m, yx, im1, im2)
+    for name in LS_WARP_PYRAMIDS:
+        with kernel_sharded_solvers(m):
+            keep(f"lsw_pyramid_{name}_{mname}", m, yx, *generic_pyramidal_optical_flow(
+                a, b, LS_WARP_PYRAMIDS[name][0], pyramid_adapter(name), pyramidalLevels=2,
+                biLinear=False))
+
+# the raises: a biLinear=False warp on tiles narrower than its Gaussian's
+# radius (the second level of a 64 x 64 pair on (1, 2, 2)), batch=True
 def raised(fn):
     try:
         fn()
@@ -140,6 +174,7 @@ def raised(fn):
         return [type(err).__name__, str(err)]
     return None
 def ls_warp():
+    a, b = tiles(m22, yx, im1[:64, :64], im2[:64, :64])
     with kernel_sharded_solvers(m22):
         generic_pyramidal_optical_flow(a, b, 0.0, LiuShenOpticalFlowAlgoAdapter(0.1),
                                        pyramidalLevels=2, biLinear=False)
@@ -161,6 +196,14 @@ if lead:
     facts["asym_single"] = {k: list(evaluate_vorticity_asym(torch.as_tensor(f[0]),
                                                             torch.as_tensor(f[1]), True))
                             for k, f in flows.items()}
+    for flow, (fu, fv) in warp_flows.items():
+        arrays[f"ref_lsw_{flow}"] = liu_shen_warp(*map(torch.as_tensor, (im1, fu, fv))).numpy()
+        arrays[f"flow_{flow}_0"], arrays[f"flow_{flow}_1"] = fu, fv
+    for name in LS_WARP_PYRAMIDS:
+        for k, t in enumerate(generic_pyramidal_optical_flow(
+                im1, im2, LS_WARP_PYRAMIDS[name][0], pyramid_adapter(name), pyramidalLevels=2,
+                biLinear=False, device="cpu")):
+            arrays[f"ref_lsw_pyramid_{name}_{k}"] = t.numpy()
     for k, arr in arrays.items():
         np.save(os.path.join(out, k + ".npy"), arr)
     with open(os.path.join(out, "facts.json"), "w") as f:
@@ -176,7 +219,8 @@ def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parallel_route2")
     out = tmp / "out"
     out.mkdir()
-    spawn_ranks(_CHILD, tmp, out, json.dumps(ROUTE2), json.dumps(ROWS), timeout=600)
+    spawn_ranks(_CHILD, tmp, out, json.dumps(ROUTE2), json.dumps(ROWS),
+                json.dumps(LS_WARP_PYRAMIDS), timeout=600)
     with open(out / "facts.json") as f:
         facts = json.load(f)
     return facts, (lambda name: np.load(out / f"{name}.npy"))
@@ -292,12 +336,85 @@ def test_vorticity_asym_on_tiles(ranks, flow):
 
 
 @pytest.mark.parametrize("case,kind,says", [
-    ("liu_shen_warp", "NotImplementedError", "ROADMAP"),
+    ("liu_shen_warp", "ValueError", "(32, 32)"),
     ("batch", "NotImplementedError", "batch_sharded_scan"),
     ("hs_thin", "ValueError", "(9, 9)")])
 def test_route2_raises(ranks, case, kind, says):
-    """No fallback: the biLinear=False warp on a mesh, ``batch=True``, and
-    HS tiles too small for the kernel's T-block (the coarse level of a
-    36 x 36 image on (1, 2, 2)) raise."""
+    """No fallback: the biLinear=False warp on tiles narrower than its
+    Gaussian's 36-cell radius (the second level of a 64 x 64 pair on (1, 2,
+    2)), ``batch=True``, and HS tiles too small for the kernel's T-block
+    (the coarse level of a 36 x 36 image on (1, 2, 2)) raise."""
     got = ranks[0][case]
     assert got is not None and got[0] == kind and says in got[1], got
+    if case == "liu_shen_warp":
+        assert "36 cells" in got[1], got
+
+
+# ---------------------------------------------------------------------------
+# the biLinear=False (Liu-Shen) warp on tiles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mname", ["122", "141"])
+@pytest.mark.parametrize("flow", ["subpixel", "integer", "crossing"])
+def test_liu_shen_warp_on_tiles_equals_whole_image(ranks, flow, mname):
+    """``liu_shen_warp_sharded`` on (1, 2, 2) and (1, 4, 1) tiles (80 x 64
+    and 40 x 128) gathered: the single-device ``liu_shen_warp`` bit for
+    bit, for a sub-pixel flow, integer flows of |d| <= 5 (collisions, and
+    negative flows on the top and left border that wrap to another rank's
+    tile) and a flow of (70, -90) px that crosses whole tiles."""
+    _, load = ranks
+    np.testing.assert_array_equal(load(f"lsw_{flow}_{mname}_0"), load(f"ref_lsw_{flow}"))
+    fu, fv = load(f"flow_{flow}_0"), load(f"flow_{flow}_1")
+    ui, vi = np.floor(fu + 0.5), np.floor(fv + 0.5)
+    ys, xs = np.mgrid[0:fu.shape[0], 0:fu.shape[1]]
+    if flow == "integer":   # destinations above and left of the image wrap
+        assert (ys + vi < 0).any() and (xs + ui < 0).any()
+    if flow == "crossing":
+        assert np.abs(vi).mean() > 80 and np.abs(ui).mean() > 64
+
+
+@pytest.mark.parametrize("mname", ["122", "141"])
+@pytest.mark.parametrize("name", ["hs", "ls"])
+def test_bilinear_false_pyramid_equals_single_device(ranks, name, mname):
+    """The two-level ``biLinear=False`` driver under ``kernel_sharded_solvers``
+    with an HS ([21, 45], 100 iterations, sigma 3.4) and a Liu-Shen (h 0.1)
+    adapter, on (1, 2, 2) and (1, 4, 1), against the single-device port:
+    AEE <= 5e-6."""
+    _, load = ranks
+    got = [load(f"lsw_pyramid_{name}_{mname}_{k}") for k in range(2)]
+    ref = [load(f"ref_lsw_pyramid_{name}_{k}") for k in range(2)]
+    assert _aee(*got, *ref) <= AEE_BAR
+
+
+@pytest.mark.parametrize("name", ["hs", "ls"])
+def test_bilinear_false_pyramid_matches_jax(ranks, name):
+    """The same pyramids against JAX's driver jitted over a (1, 2, 2) mesh
+    of the conftest's CPU devices under ``kernel_sharded_solvers(mesh,
+    True)`` and ``force_xla()``, as its route 2 runs: AEE < 1e-5, JAX's
+    route-2 bar."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    import opticalflow_ri_tpu
+    from opticalflow_ri_tpu.ops.pallas import force_xla
+    from opticalflow_ri_tpu.parallel.context import kernel_sharded_solvers
+
+    _, load = ranks
+    sigma, cls, args = LS_WARP_PYRAMIDS[name]
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 2, 2), ("batch", "y", "x"))
+    tiled = NamedSharding(mesh, P("y", "x"))
+
+    def run(a, b):
+        a, b = (jax.lax.with_sharding_constraint(t, tiled) for t in (a, b))
+        with force_xla(), kernel_sharded_solvers(mesh, True):
+            u, v = opticalflow_ri_tpu.generic_pyramidal_optical_flow(
+                a, b, sigma, getattr(opticalflow_ri_tpu, cls)(*args), pyramidalLevels=2,
+                biLinear=False)
+        return tuple(jax.lax.with_sharding_constraint(t, tiled) for t in (u, v))
+
+    im1, im2 = _pair()
+    uj, vj = (np.asarray(t) for t in jax.jit(run, in_shardings=(tiled, tiled))(
+        jnp.asarray(im1), jnp.asarray(im2)))
+    assert _aee(load(f"lsw_pyramid_{name}_122_0"), load(f"lsw_pyramid_{name}_122_1"),
+                uj, vj) < 1e-5
