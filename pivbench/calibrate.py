@@ -39,7 +39,7 @@ def program_numbers(cell: spec.Cell, seed: int, dev: torch.device) -> dict:
     driver = Driver(cell.traffic, cell.config["registry"], im1s, im2s, dev)
     flows = {}
     for i in range(len(driver.units)):
-        c = driver.call(i)
+        c, _ = driver.call(i)
         for j, k in enumerate(c.pairs):
             flows[k] = (c.u[j], c.v[j])
     ref = check.reference_flows(cell.config, im1s, im2s, range(im1s.shape[0]), dev)

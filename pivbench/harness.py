@@ -16,7 +16,7 @@ import torch
 from pivbench import check, spec, work
 from pivbench.drive import Driver
 from pivbench.generator import make_pool
-from pivbench.trace import breakdown, busy_ns, clip, profiled
+from pivbench.trace import breakdown, busy_ns, clip, matches, profiled
 
 
 def device_info(dev: torch.device, chips: int) -> dict:
@@ -50,24 +50,22 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     driver = Driver(traffic, cfg["registry"], im1s, im2s, dev)
-    rate = driver.warm_up(float(traffic["warm_seconds"]))
+    rate = driver.warm_up()
     _sync(dev)
     setup_s = time.time() - t_process
     parts = {"to_pool_s": t_pool - t_process, "pool_s": t_warm - t_pool,
              "warm_up_s": t_process + setup_s - t_warm}
 
-    tr = event_ms = None
+    tr = plain = None
     if trace:
-        timer = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if dev.type == "cuda" else None
+        calls = int(traffic["trace_calls"])
+        # the same calls untraced first: the entry's host time, without the
+        # profiler's own cost on the host
+        plain = driver.run(0, seed, rate, calls=calls)
         with profiled(dev) as tr:
             driver.call(0)      # the profiler's own first-call costs, before the window
-            if timer:
-                timer[0].record()
-            window = driver.run(0, seed, rate, traced_calls=int(traffic["trace_calls"]))
-            if timer:
-                timer[1].record()
+            window = driver.run(0, seed, rate, calls=calls, traced=True)
             _sync(dev)
-        event_ms = timer[0].elapsed_time(timer[1]) if timer else None
     else:
         window = driver.run(seconds, seed, rate)
     dinfo = device_info(dev, cell.chips)
@@ -89,12 +87,14 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
 
     result = {"correct": correct, "attempted": window.pairs, "failed": failed}
     if trace:
-        ctx = context(cell, tr, window, numbers["tally"], event_ms)
+        ctx = context(cell, tr, window, numbers["tally"], plain)
         metrics = {}
         for m in cell.per_layer:
             value = spec.reader(m["name"], cell.root)(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        if dev.type == "cuda":
+            result["trace_faults"] = trace_faults(cell, ctx, metrics)
         lo, hi = tr.window()
         dinfo["busy_s"] = ctx["busy_ns"] / 1e9
         dinfo["window_s"] = (hi - lo) / 1e9
@@ -113,9 +113,45 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     return result
 
 
-def context(cell: spec.Cell, tr, window, tally: dict, event_ms) -> dict:
+EXTENT_SHARE = 0.02     # CUDA events against the trace's end, as a share of the events
+
+
+def trace_faults(cell: spec.Cell, ctx: dict, metrics: dict) -> list:
+    """Why the trace cannot be read, if it cannot: the loop by CUDA events
+    and the trace's device timeline, from the loop's start to its last
+    device operation, differ by more than ``EXTENT_SHARE`` of the events;
+    a call of the window holds no kernel of a stage that a metric of the
+    cell reads; or a metric that names the cell among its ``workloads``
+    found nothing to read."""
+    faults = []
+    tc = ctx["trace_check"]
+    gap = abs(tc["event_ms"] - tc["profiler_extent_ms"])
+    if gap > EXTENT_SHARE * tc["event_ms"]:
+        faults.append(f"the loop took {tc['event_ms']:.4f} ms by CUDA events and "
+                      f"{tc['profiler_extent_ms']:.4f} ms to the trace's last device op")
+    entries = sorted((s, e) for n, s, e in ctx["trace"].spans if n == "entry")
+    fetches = sorted((s, e) for n, s, e in ctx["trace"].spans if n == "fetch")
+    kernels = [o for o in ctx["ops"] if o.kind == "kernel"]
+    for m in cell.per_layer:
+        stage = getattr(spec.module(m["name"], cell.root), "STAGE", None)
+        names = ctx["stages"].get(stage, [])
+        for i, ((lo, _), (_, hi)) in enumerate(zip(entries, fetches)):
+            if stage and not any(lo <= o.start < hi and any(matches(o.name, k) for k in names)
+                                 for o in kernels):
+                faults.append(f"call {i} of the window holds no kernel of stage {stage} "
+                              f"({m['name']})")
+                break
+        if "workloads" in m and m["name"] not in metrics:
+            faults.append(f"{m['name']} found nothing to read")
+    if not entries or len(entries) != len(fetches):
+        faults.append(f"{len(entries)} entry spans and {len(fetches)} fetch spans in the trace")
+    return faults
+
+
+def context(cell: spec.Cell, tr, window, tally: dict, plain=None) -> dict:
     """What a per-layer reader reads: the trace, the window's pairs and the
-    reference's tally of their work, the stages' kernel names."""
+    reference's tally of their work, the stages' kernel names, and
+    ``plain``, the same calls untraced (a ``Window``)."""
     lo, hi = tr.window()
     ops = [o for o in tr.ops if o.end > lo and o.start < hi]
     busy = busy_ns(clip([(o.start, o.end) for o in ops], lo, hi))
@@ -123,8 +159,12 @@ def context(cell: spec.Cell, tr, window, tally: dict, event_ms) -> dict:
     stages = spec.stages(cell.root)
     hand = {k for names in stages.values() for k in names}
     ctx = {"trace": tr, "window": (lo, hi), "ops": ops, "busy_ns": busy, "pairs": window.pairs,
-           "entries": entries, "stages": stages, "hand_kernels": hand, "work": work}
-    extent = (max(o.end for o in ops) - min(o.start for o in ops)) / 1e6 if ops else 0.0
-    ctx["trace_check"] = {"event_ms": event_ms, "profiler_extent_ms": extent,
-                          "profiler_busy_ms": busy / 1e6, "device_ops": len(ops)}
+           "entries": entries, "stages": stages, "hand_kernels": hand, "work": work,
+           "plain": plain}
+    ctx["trace_check"] = {
+        "event_ms": window.event_ms,
+        "profiler_extent_ms": (max(o.end for o in ops) - lo) / 1e6 if ops else 0.0,
+        "profiler_busy_ms": busy / 1e6, "device_ops": len(ops),
+        "profiler_slowdown": ((hi - lo) / 1e9 / (plain.end - plain.start)
+                              if plain and plain.end > plain.start else None)}
     return ctx

@@ -1,9 +1,11 @@
-"""Host time inside the entry's calls (the ``entry`` spans: pinning, copies
-enqueued, graph replays enqueued, clones), per pair, ms."""
+"""Host time inside the entry's calls (pinning, copies enqueued, graph
+replays enqueued, clones), per pair, ms: the window's calls made once more
+just before it, untraced, so that the profiler's own host cost is not in
+it."""
 
 
 def read(ctx):
-    spans = [e - s for name, s, e in ctx["trace"].spans if name == "entry"]
-    if not spans or not ctx["pairs"]:
+    plain = ctx["plain"]
+    if plain is None or not plain.pairs:
         return None
-    return sum(spans) / 1e6 / ctx["pairs"]
+    return plain.entry_s * 1e3 / plain.pairs

@@ -13,7 +13,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from pivbench.reference.glue import correlate1d, resize
+from pivbench.reference.glue import correlate1d, exact, resize
 
 STAGE = "fb_iterate"
 BORDER_RAMP = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472, 1.0], np.float32)
@@ -68,12 +68,12 @@ def poly_basis(n: int, sigma: float):
             tuple(float(np.float32(inv[i, j])) for i, j in ((1, 1), (0, 3), (3, 3), (5, 5))))
 
 
-def expand(src: torch.Tensor, n: int, sigma: float, dtype=torch.float32) -> torch.Tensor:
+def expand(src: torch.Tensor, n: int, sigma: float, operand=exact) -> torch.Tensor:
     """(..., H, W) -> (..., 5, H, W) polynomial expansion."""
     g, xg, xxg, (i11, i03, i33, i55) = poly_basis(n, float(sigma))
 
     def corr(x, k, axis):
-        return correlate1d(x, k, axis, "nearest", dtype)
+        return correlate1d(x, k, axis, "nearest", operand)
 
     ve, vo, vx2 = (corr(src, k, -2) for k in (g, xg, xxg))
     b1, b2, b4 = (corr(ve, k, -1) for k in (g, xg, xxg))
@@ -136,10 +136,10 @@ def update_matrices(fx, fy, r0, r1):
                         r4 * r2 + r6 * r3, r6 * r2 + r5 * r3], dim=1)
 
 
-def blur_solve(m, taps, mode: str, scale: float, dtype=torch.float32):
+def blur_solve(m, taps, mode: str, scale: float, operand=exact):
     """Window-blur the five planes of M (rows, then columns), then the
     regularised 2x2 solve for the flow."""
-    out = correlate1d(correlate1d(m, taps, -2, mode, dtype), taps, -1, mode, dtype)
+    out = correlate1d(correlate1d(m, taps, -2, mode, operand), taps, -1, mode, operand)
     if scale != 1.0:
         out = out * float(np.float32(scale))
     g11, g12, g22, h1, h2 = out.unbind(1)
@@ -167,7 +167,7 @@ def level_plan(rows: int, cols: int, pyr_scale: float, levels: int) -> list:
 
 def solve(im1, im2, u, v, p: dict, prec, tally: list):
     """The whole Farnebäck solve of a block of pairs from the flow (u, v)."""
-    mm, dt = prec.matmul, prec.dtype
+    mm, rnd = prec.matmul, prec.operand
     window, n_iters = int(p["window"]), int(p["iterations"])
     if p.get("gaussian", True):
         taps, mode, post = opencv_gaussian(window, window / 2 * 0.3), "mirror", 1.0
@@ -181,20 +181,20 @@ def solve(im1, im2, u, v, p: dict, prec, tally: list):
         src, f = ((u, v), sc) if prev is None else (prev, 1.0 / float(p.get("pyr_scale", 0.5)))
         f = float(np.float32(f))
         fx, fy = (resize(t, (h, w), "bilinear", mm) * f for t in src)
-        ra, rb = (expand(resize(_blur(im, smooth, sigma, dt), (h, w), "bilinear", mm),
-                         int(p["poly_n"]), float(p["poly_sigma"]), dt) for im in (im1, im2))
+        ra, rb = (expand(resize(_blur(im, smooth, sigma, rnd), (h, w), "bilinear", mm),
+                         int(p["poly_n"]), float(p["poly_sigma"]), rnd) for im in (im1, im2))
         for _ in range(n_iters):
-            fx, fy = blur_solve(update_matrices(fx, fy, ra, rb), taps, mode, post, dt)
+            fx, fy = blur_solve(update_matrices(fx, fy, ra, rb), taps, mode, post, rnd)
         tally.append({"stage": STAGE, "shape": (h, w), "counts": [n_iters] * im1.shape[0],
                       "params": {"taps": int(np.asarray(taps).size)}})
         prev = (fx, fy)
     return prev
 
 
-def _blur(im, n: int, sigma: float, dtype=torch.float32):
+def _blur(im, n: int, sigma: float, operand=exact):
     """OpenCV's separable Gaussian of the frame, reflect-101 border."""
     k = opencv_gaussian(n, sigma)
-    return correlate1d(correlate1d(im, k, -2, "mirror", dtype), k, -1, "mirror", dtype)
+    return correlate1d(correlate1d(im, k, -2, "mirror", operand), k, -1, "mirror", operand)
 
 
 class Solver:

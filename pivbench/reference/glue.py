@@ -9,8 +9,9 @@ The resize matrices are applied by ``mm``, the reference's matrix product:
 ``matmul_fp32`` runs it in float32 with TF32 off, ``matmul_tf32`` in TF32
 (on a CPU, where PyTorch has no TF32, both operands are rounded to TF32's
 10-bit mantissa first, which is what the card's tensor cores do to them).
-``PRECISIONS`` names the reference's precision and the controls' lower
-ones.
+The Farnebäck correlations round their operands likewise in TF32, and sum
+in float32.  ``PRECISIONS`` names the reference's precision and the
+control's lower one.
 """
 
 from __future__ import annotations
@@ -60,18 +61,22 @@ def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(round_tf32(a), round_tf32(b))
 
 
+def exact(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 @dataclass(frozen=True)
 class Precision:
     """How the reference computes: ``matmul`` for the resize products,
-    ``dtype`` for the Farnebäck correlations (the expansion and the blurs)."""
+    ``operand`` rounds the operands of the Farnebäck correlations (the
+    expansion and the blurs; the frames or planes, and the taps)."""
     matmul: Callable
-    dtype: torch.dtype
+    operand: Callable
 
 
 PRECISIONS = {
-    "fp32": Precision(matmul_fp32, torch.float32),   # what the configurations state
-    "tf32": Precision(matmul_tf32, torch.float32),   # the control below float32 products
-    "bf16": Precision(matmul_tf32, torch.bfloat16),  # the control below float32 correlations
+    "fp32": Precision(matmul_fp32, exact),        # what the configurations state
+    "tf32": Precision(matmul_tf32, round_tf32),   # the control: TF32 products
 }
 
 
@@ -109,12 +114,12 @@ def pad2d(x: torch.Tensor, pad, mode: str) -> torch.Tensor:
 # --- correlations -------------------------------------------------------------
 
 def correlate1d(x: torch.Tensor, taps, axis: int, mode: str,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                operand: Callable = exact) -> torch.Tensor:
     """``scipy.ndimage.correlate1d`` along one of the last two axes, the kernel
-    centred at len // 2, zero taps skipped; computed in ``dtype`` and
-    returned in float32."""
-    taps = np.asarray(taps, np.float32)
-    x = x.to(dtype)
+    centred at len // 2, zero taps skipped; the input and the taps rounded
+    by ``operand``, the products summed in float32."""
+    taps = operand(torch.from_numpy(np.asarray(taps, np.float32))).numpy()
+    x = operand(x.to(torch.float32))
     n = taps.size
     c = n // 2
     last = axis % x.ndim == x.ndim - 1
@@ -126,7 +131,7 @@ def correlate1d(x: torch.Tensor, taps, axis: int, mode: str,
             continue
         term = (xp[..., :, j:j + size] if last else xp[..., j:j + size, :]) * t
         out = term if out is None else out + term
-    return out.to(torch.float32)
+    return out
 
 
 def separable_correlate(x: torch.Tensor, taps, mode: str) -> torch.Tensor:

@@ -8,7 +8,8 @@ from the root of a checkout, on a machine with the cards the cell asks for.
 last line of standard output is one JSON object; the numbers that decide
 ``correct`` are the last lines of standard error.  Without a card, or with
 fewer than the cell asks for, it prints no result and exits 2; with JAX or
-the JAX package loaded once the window has closed, it exits 3.
+the JAX package loaded once the window has closed, it exits 3; where the
+trace does not see all the device work that its metrics read, it exits 4.
 """
 
 import time
@@ -60,8 +61,13 @@ def main(argv=None) -> int:
     if found:
         print(f"JAX or the JAX package was loaded: {', '.join(found)}", file=sys.stderr)
         return 3
+    faults = result.pop("trace_faults", [])
+    for fault in faults:
+        print(f"trace fault: {fault}", file=sys.stderr)
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
+    if faults:
+        return 4
     print(json.dumps(result), flush=True)
     return 0
 

@@ -72,10 +72,16 @@ def stages(root: Path = PACKAGE_DIR) -> dict:
     return out
 
 
-def reader(metric: str, root: Path = PACKAGE_DIR):
-    """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
+def module(metric: str, root: Path = PACKAGE_DIR):
+    """The module ``metrics/<metric>.py``: its ``read(ctx)``, and the
+    ``STAGE`` whose kernels it reads, if it reads one."""
     path = root / "metrics" / f"{metric}.py"
     spec = importlib.util.spec_from_file_location(f"pivbench_metric_{metric}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str, root: Path = PACKAGE_DIR):
+    """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
+    return module(metric, root).read

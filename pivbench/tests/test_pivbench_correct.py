@@ -94,9 +94,10 @@ def test_answer_altered_where_produced_is_not_correct(name, monkeypatch):
     assert r["checks"]["flow_aee_px"]["value"] > r["checks"]["flow_aee_px"]["limit"]
 
 
-@pytest.mark.parametrize("name", ["ls_hs_512.stream", "ls_hs_512.single"])
+@pytest.mark.parametrize("name", CELLS)
 def test_one_value_altered_is_not_correct(name, monkeypatch):
-    """ls_hs_512 also compares the largest gap: one value off by 0.05 px fails."""
+    """Both configurations also compare the largest gap: one value off by
+    0.05 px fails."""
     real = configs.FlowConfig.run
 
     def altered(self, im1, im2, device="cuda"):

@@ -4,7 +4,7 @@ the interval union and gaps, and the readers on a hand-made trace."""
 import pytest
 
 from pivbench import spec, work
-from pivbench.harness import context
+from pivbench.harness import context, trace_faults
 from pivbench.drive import Window
 from pivbench.trace import DeviceOp, Trace, breakdown, busy_ns, gaps, matches, union
 from pivbench.tests._cells import CHECKOUT
@@ -60,18 +60,24 @@ def test_kernel_names_match_whole_identifiers():
                    "warp_pair_kernel")
 
 
-def _ctx():
-    """A window of 1000 ns with two pairs: an HS kernel, an elementwise
-    kernel overlapping it, two copies, an entry and a fetch span."""
-    ops = [DeviceOp("Memcpy HtoD (Pinned -> Device)", "htod", 100, 150),
-           DeviceOp("(anonymous namespace)::hs_block_kernel(float const*)", "kernel", 150, 450),
-           DeviceOp("void at::native::vectorized_elementwise_kernel<4>(int)", "kernel", 400, 500),
-           DeviceOp("Memcpy DtoH (Device -> Pageable)", "dtoh", 700, 800)]
+def _ctx(ops=None, event_ms=800 / 1e6):
+    """A window of 1000 ns with two pairs in one call: an HS kernel, a
+    Liu-Shen kernel, an elementwise kernel overlapping the HS one, two
+    copies, an entry and a fetch span; the same call untraced spent 100 ns
+    in the entry."""
+    if ops is None:
+        ops = [DeviceOp("Memcpy HtoD (Pinned -> Device)", "htod", 100, 150),
+               DeviceOp("(anonymous namespace)::hs_block_kernel(float const*)", "kernel", 150, 350),
+               DeviceOp("(anonymous namespace)::ls_block_kernel(LsFields)", "kernel", 350, 450),
+               DeviceOp("void at::native::vectorized_elementwise_kernel<4>(int)", "kernel", 400, 500),
+               DeviceOp("Memcpy DtoH (Device -> Pinned)", "dtoh", 700, 800)]
     tr = Trace(ops, [("loop", 0, 1000), ("entry", 0, 100), ("fetch", 600, 900)])
-    w = Window(0.0, 1.0, pairs=2, visits={0: 1, 1: 1})
-    tally = {i: [{"stage": "hs_iterate", "shape": (512, 512), "count": 600}] for i in (0, 1)}
+    w = Window(0.0, 1.0, pairs=2, visits={0: 1, 1: 1}, event_ms=event_ms)
+    plain = Window(0.0, 0.5e-6, pairs=2, entry_s=100e-9)
+    tally = {i: [{"stage": "hs_iterate", "shape": (512, 512), "count": 600},
+                 {"stage": "ls_iterate", "shape": (512, 512), "count": 60}] for i in (0, 1)}
     cell = spec.load_cell("ls_hs_512.stream", CHECKOUT / "BENCHMARK.json")
-    return cell, context(cell, tr, w, tally, None)
+    return cell, context(cell, tr, w, tally, plain)
 
 
 def test_readers_on_a_hand_made_trace():
@@ -86,15 +92,49 @@ def test_readers_on_a_hand_made_trace():
     assert read("copy_ms") == pytest.approx(150 / 1e6 / 2)
     assert read("torch_ops_ms") == pytest.approx(100 / 1e6 / 2)
     least = 2 * 16205 * 512 * 512 / PEAK
-    assert read("hs_iterate_roofline") == pytest.approx(100 * least / 300e-9)
-    assert read("ls_iterate_roofline") is None              # no such kernel, no such work
-    assert read("fb_iterate_roofline") is None
-    assert read("pair_mfu") == pytest.approx(100 * 2 * 16205 * 512 * 512 / (1e-6 * PEAK))
+    assert read("hs_iterate_roofline") == pytest.approx(100 * least / 200e-9)
+    ls_least = 2 * 68 * 60 * 512 * 512 / PEAK
+    assert read("ls_iterate_roofline") == pytest.approx(100 * ls_least / 100e-9)
+    assert read("fb_iterate_roofline") is None              # no such kernel, no such work
+    assert read("pair_mfu") == pytest.approx(
+        100 * 2 * (16205 + 68 * 60) * 512 * 512 / (1e-6 * PEAK))
+    assert ctx["trace_check"]["profiler_slowdown"] == pytest.approx(2.0)
+
+
+def _readings(ctx, cell):
+    return {m["name"]: v for m in cell.per_layer
+            if (v := spec.reader(m["name"])(ctx)) is not None}
+
+
+def test_a_whole_trace_has_no_fault():
+    cell, ctx = _ctx()
+    assert trace_faults(cell, ctx, _readings(ctx, cell)) == []
+
+
+def test_a_trace_that_ends_early_is_a_fault():
+    """The events see the loop's device work end at 800 ns; a trace that
+    loses the last copy ends at 500 ns."""
+    cell, ctx = _ctx()
+    ops = [o for o in ctx["ops"] if o.kind != "dtoh"]
+    cell, ctx = _ctx(ops)
+    faults = trace_faults(cell, ctx, _readings(ctx, cell))
+    assert len(faults) == 1 and "CUDA events" in faults[0], faults
+
+
+def test_a_call_without_a_stage_kernel_is_a_fault():
+    """A trace that misses the Liu-Shen kernel: the stage the cell's roofline
+    reads is missing from the call, and the roofline reads nothing."""
+    cell, ctx = _ctx()
+    ops = [o for o in ctx["ops"] if "ls_block" not in o.name]
+    cell, ctx = _ctx(ops)
+    faults = trace_faults(cell, ctx, _readings(ctx, cell))
+    assert any("stage ls_iterate" in f for f in faults), faults
+    assert any("ls_iterate_roofline found nothing" in f for f in faults), faults
 
 
 def test_breakdown_names_ops_and_gaps():
     cell, ctx = _ctx()
     bd = breakdown(ctx["trace"])
-    assert bd["device_ops"][0] == ["hs_block_kernel", 300 / 1e9]
+    assert bd["device_ops"][0] == ["hs_block_kernel", 200 / 1e9]
     assert [g[0] for g in bd["idle_gaps"]] == ["fetch", "fetch", "entry"]   # [500, 700], [800, 1000], [0, 100]
     assert bd["idle_gaps"][0][1] == pytest.approx(200 / 1e9)
