@@ -23,6 +23,12 @@ there is no eager fallback on the card.  CPU inputs (``device="cpu"``, or
 CPU tensors) run the eager path.  A kernel wrapper's ``launches`` counter
 counts at capture, not at replay.
 
+Under a ``torch.profiler`` session a call names its stages
+(``utils/timing.span``): ``ofri.pin`` (a frame's host copy into pinned
+memory), ``ofri.h2d`` (its copies into the graph's input), ``ofri.replay``,
+``ofri.clone`` (a pair's outputs), ``ofri.gather`` (a scan's slot copies)
+and ``ofri.capture`` (warm-up and capture at a new shape).
+
 ``CompiledPipeline`` takes any run function with the signature of
 ``build_config(name).run``: ``parallel.auto.auto_sharded_pipeline`` gives
 it a rank's sharded pipeline (``parallel.auto.sharded_pipeline_fn``) on
@@ -46,6 +52,7 @@ import torch
 
 from opticalflow_ri_tpu_torch.configs import build_config
 from opticalflow_ri_tpu_torch.utils.device import resolve
+from opticalflow_ri_tpu_torch.utils.timing import span
 
 
 def pipeline_fn(name: str):
@@ -72,13 +79,19 @@ def _check_pair(im1, im2, ndim: int) -> tuple:
     return shape
 
 
-def _to_device(x, device: torch.device) -> torch.Tensor:
-    """``x`` as float32 on ``device``: a tensor is cast in place on its own
-    device, a numpy array goes through pinned memory without waiting."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    host = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-    return host.pin_memory().to(device, non_blocking=True)
+def _to_device(x, device: torch.device, into=None) -> torch.Tensor:
+    """``x`` as float32 on ``device``, copied on into the buffer ``into`` if
+    given: a tensor is cast in place on its own device, a numpy array goes
+    through pinned memory (``ofri.pin``) without waiting.  The copies are one
+    span ``ofri.h2d``."""
+    if not isinstance(x, torch.Tensor):
+        with span("pin"):
+            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).pin_memory()
+    with span("h2d"):
+        x = x.to(device=device, dtype=torch.float32, non_blocking=x.is_pinned())
+        if into is not None:
+            into.copy_(x)
+    return x
 
 
 class _Graph(NamedTuple):
@@ -106,7 +119,8 @@ class CompiledPipeline:
         if dev.type != "cuda":
             return self._run(im1, im2, device=dev)
         u, v = self.replay(im1, im2, dev)
-        return u.clone(), v.clone()
+        with span("clone"):
+            return u.clone(), v.clone()
 
     def replay(self, im1, im2, device="cuda"):
         """Copy the pair into the graph of its shape (captured at the first
@@ -118,10 +132,12 @@ class CompiledPipeline:
         key = (*_check_pair(im1, im2, 2), dev)
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = self._capture(key, im1, im2)
+            with span("capture"):
+                g = self._graphs[key] = self._capture(key, im1, im2)
         for buf, im in zip(g.inputs, (im1, im2)):
-            buf.copy_(_to_device(im, dev))
-        g.graph.replay()
+            _to_device(im, dev, into=buf)
+        with span("replay"):
+            g.graph.replay()
         return g.outputs
 
     def warm_up(self, im1, im2, device="cuda") -> None:
@@ -187,8 +203,9 @@ def scan_pipeline(name: str):
             im1s, im2s = _to_device(im1s, dev), _to_device(im2s, dev)
         for i in range(k):
             u, v = (pipe.replay if dev.type == "cuda" else pipe)(im1s[i], im2s[i], dev)
-            us[i].copy_(u)
-            vs[i].copy_(v)
+            with span("gather"):
+                us[i].copy_(u)
+                vs[i].copy_(v)
         return us, vs
 
     scanned.release = pipe.release

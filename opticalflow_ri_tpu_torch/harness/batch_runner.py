@@ -11,7 +11,10 @@ with prefetching, checkpoint and resume, failure isolation and profiling
   * a failed batch (a missing or corrupt frame) is logged and recorded under
     ``failed``, and the campaign goes on;
   * ``profile_dir`` records a ``torch.profiler`` trace of the steady state
-    (from the second batch on);
+    (from the second batch on), on every thread: the producer's spans
+    ``ofri.decode`` and ``ofri.upload``, the writer's ``ofri.wait`` (for the
+    batch's compute) and ``ofri.write`` (copy to host, ``.mat`` files), beside
+    the entry's and the pyramid's (``utils/timing.span``);
   * ``mesh`` (a ("batch", 1, 1) mesh, ``parallel.make_mesh``) shards each
     batch over the ranks of a process group: every rank runs the runner on
     the same pair list, decodes, computes (``scan_pipeline``, which is what
@@ -123,7 +126,7 @@ class FlowBatchRunner:
         """
         from opticalflow_ri_tpu_torch.compile import scan_pipeline
         from opticalflow_ri_tpu_torch.utils.io import load_image_batch, save_flow
-        from opticalflow_ri_tpu_torch.utils.timing import trace
+        from opticalflow_ri_tpu_torch.utils.timing import span, trace
 
         state = self._load_checkpoint()
         if state.get("config") != self.config_name:
@@ -174,8 +177,9 @@ class FlowBatchRunner:
                     error = None
                     if chunk:  # this rank's slice of a ragged tail may be empty
                         try:
-                            im1 = load_image_batch([c[1] for c in chunk])
-                            im2 = load_image_batch([c[2] for c in chunk])
+                            with span("decode"):
+                                im1 = load_image_batch([c[1] for c in chunk])
+                                im2 = load_image_batch([c[2] for c in chunk])
                         except Exception as e:
                             error = e
                     if meshed:
@@ -191,7 +195,8 @@ class FlowBatchRunner:
                         im1 = np.concatenate([im1, np.repeat(im1[-1:], pad, 0)])
                         im2 = np.concatenate([im2, np.repeat(im2[-1:], pad, 0)])
                     ready = None
-                    with torch.cuda.stream(copy_stream) if cuda else contextlib.nullcontext():
+                    with (torch.cuda.stream(copy_stream) if cuda else contextlib.nullcontext(),
+                          span("upload")):
                         g1, g2 = upload(im1), upload(im2)
                         if cuda:
                             ready = torch.cuda.Event()
@@ -245,13 +250,15 @@ class FlowBatchRunner:
                     try:
                         t0 = time.perf_counter()
                         if finished is not None:
-                            finished.synchronize()
+                            with span("wait"):
+                                finished.synchronize()
                         t1 = time.perf_counter()
-                        un, vn = to_host(us), to_host(vs)
-                        if self.save_outputs:
-                            for i, name in enumerate(names):
-                                save_flow(un[i], vn[i],
-                                          os.path.join(self.output_dir, f"{name}.mat"))
+                        with span("write"):
+                            un, vn = to_host(us), to_host(vs)
+                            if self.save_outputs:
+                                for i, name in enumerate(names):
+                                    save_flow(un[i], vn[i],
+                                              os.path.join(self.output_dir, f"{name}.mat"))
                         stats["compute_wait_s"] += t1 - t0
                         stats["transfer_save_s"] += time.perf_counter() - t1
                     except Exception as e:

@@ -45,6 +45,7 @@ from opticalflow_ri_tpu_torch.ops.kernels_bitexact import get_gaussian_kernel_bi
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.resize import pil_resize
 from opticalflow_ri_tpu_torch.ops.stencil import correlate1d, correlate1d_padded
+from opticalflow_ri_tpu_torch.utils.timing import span
 
 
 @lru_cache(maxsize=None)
@@ -180,7 +181,8 @@ def farneback_solve(im1, im2, u0, v0, window_size=33, n_iters=5, poly_n=7,
                     pyr_levels=1, impl: str = "auto"):
     """The whole Farneback pipeline (``models/farneback.py:497-546``); returns
     (flowx, flowy).  ``impl="auto"`` is the only value: the two kernels on
-    CUDA tensors, their plain versions on CPU tensors."""
+    CUDA tensors, their plain versions on CPU tensors.  Under a profiler each
+    frame's expansion is a span ``ofri.expand`` and the rounds ``ofri.iterate``."""
     if impl != "auto":
         raise ValueError(
             f"impl={impl!r}: the port offers impl='auto' (the updateMatrices and blur + "
@@ -206,15 +208,19 @@ def farneback_solve(im1, im2, u0, v0, window_size=33, n_iters=5, poly_n=7,
             fy = pil_resize(prev[1], (h, w), "bilinear") * f
         fx, fy = fx.contiguous(), fy.contiguous()
 
-        ra, rb = (poly_expansion(
-            pil_resize(gaussian_blur(im, lvl["smooth"], lvl["sigma"]), (h, w), "bilinear"),
-            poly_n, poly_sigma).contiguous() for im in (im1, im2))
+        def expand(im):
+            src = pil_resize(gaussian_blur(im, lvl["smooth"], lvl["sigma"]), (h, w), "bilinear")
+            with span("expand"):
+                return poly_expansion(src, poly_n, poly_sigma).contiguous()
 
-        m = tent_sample.update_matrices(fx, fy, ra, rb)
-        for i in range(n_iters):
-            fx, fy = blur5_flow.blur5_flow(m, taps, mode, scale)
-            if i < n_iters - 1:
-                m = tent_sample.update_matrices(fx, fy, ra, rb)
+        ra, rb = expand(im1), expand(im2)
+
+        with span("iterate"):
+            m = tent_sample.update_matrices(fx, fy, ra, rb)
+            for i in range(n_iters):
+                fx, fy = blur5_flow.blur5_flow(m, taps, mode, scale)
+                if i < n_iters - 1:
+                    m = tent_sample.update_matrices(fx, fy, ra, rb)
         prev = (fx, fy)
 
     return prev

@@ -24,6 +24,7 @@ import torch
 
 from opticalflow_ri_tpu_torch.ops.cuda import hs_iter
 from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
+from opticalflow_ri_tpu_torch.utils.timing import span
 
 
 def hs_solve(im1, im2, alpha, niter: int, u0, v0):
@@ -31,15 +32,18 @@ def hs_solve(im1, im2, alpha, niter: int, u0, v0):
 
     ``im1``/``im2`` are the frames at t=0/t=1 (driver order).  ``error`` is a
     0-d tensor on the flow's device: reading it on the host would wait for
-    the device, so the driver only logs it.
+    the device, so the driver only logs it.  Under a profiler the stencils are
+    a span ``ofri.derivatives`` and the iterations ``ofri.iterate``.
     """
     im1 = im1.to(torch.float32)
     im2 = im2.to(torch.float32)
     u0 = u0.to(torch.float32).contiguous()
     v0 = v0.to(torch.float32).contiguous()
 
-    fx, fy, ft = hs_derivatives(im1, im2)
-    u, v = hs_iter.hs_iterate(fx, fy, ft, u0, v0, alpha, niter)
+    with span("derivatives"):
+        fx, fy, ft = hs_derivatives(im1, im2)
+    with span("iterate"):
+        u, v = hs_iter.hs_iterate(fx, fy, ft, u0, v0, alpha, niter)
 
     npix = im1.shape[-2] * im1.shape[-1]
     err = (torch.linalg.norm(u - u0) + torch.linalg.norm(v - v0)) / float(npix)

@@ -32,6 +32,7 @@ from opticalflow_ri_tpu_torch.ops.cuda.liu_shen_iter import (  # noqa: F401  (re
     liu_shen_iteration, ls_field_stencils, ls_ring_sum,
 )
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3
+from opticalflow_ri_tpu_torch.utils.timing import span
 
 # Original (MATLAB-orientation) kernels; applied as correlations.
 _K_D1 = np.array([[0, -1, 0], [0, 0, 0], [0, 1, 0]], np.float32) / 2.0   # d/drow
@@ -77,15 +78,18 @@ def liu_shen_precompute(im1, im2, h):
 def liu_shen_solve(im1, im2, h, u0, v0, max_iter: int = 60, tol: float = 1e-8):
     """Run the Liu-Shen fixed-point solve; returns (u, v, err) with u along
     rows (see the adapter for the swap).  ``err`` is a 0-d float32 tensor on
-    the flow's device, 0 when no iteration ran."""
+    the flow's device, 0 when no iteration ran.  Under a profiler the fields
+    are a span ``ofri.precompute`` and the solve ``ofri.iterate``."""
     im1 = im1.to(torch.float32)
     im2 = im2.to(torch.float32)
     im1 = im1 / im1.max()
     im2 = im2 / im2.max()
-    fields = liu_shen_precompute(im1, im2, h)
-    u, v, err, _ = liu_shen_iter.liu_shen_iterate(
-        h, fields, u0.to(torch.float32).contiguous(), v0.to(torch.float32).contiguous(),
-        max_iter, tol)
+    with span("precompute"):
+        fields = liu_shen_precompute(im1, im2, h)
+    with span("iterate"):
+        u, v, err, _ = liu_shen_iter.liu_shen_iterate(
+            h, fields, u0.to(torch.float32).contiguous(), v0.to(torch.float32).contiguous(),
+            max_iter, tol)
     return u, v, err
 
 

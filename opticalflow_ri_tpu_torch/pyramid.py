@@ -26,6 +26,11 @@ Tensor inputs stay on their device; numpy inputs go to ``device`` (default
 the path waits for the device, so a run can be captured in a CUDA graph
 (``compile.compiled_pipeline``): the adapters' errors stay device tensors and
 are logged only outside a capture.
+
+Under a ``torch.profiler`` session each level is a span ``ofri.level<n>``
+holding the spans of its stages (``utils/timing.span``): ``ofri.resize``,
+``ofri.upsample``, ``ofri.warp``, ``ofri.prefilter``, ``ofri.solve`` (the
+main adapter), ``ofri.refine`` (the optional one) and ``ofri.accumulate``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter_px
 from opticalflow_ri_tpu_torch.ops.resize import pil_resize, spline_upsample
 from opticalflow_ri_tpu_torch.ops.warp import symmetric_warp_pair, liu_shen_warp
 from opticalflow_ri_tpu_torch.utils.device import capturing
+from opticalflow_ri_tpu_torch.utils.timing import span
 
 log = logging.getLogger("opticalflow_ri_tpu_torch")
 
@@ -102,7 +108,8 @@ def _imresize_bicubic(im, scale, glue=DEVICE_GLUE):
     in_h, in_w = glue.shape(im.shape)
     out_w = int(np.round(in_w * scale))
     out_h = int(np.round(in_h * scale))
-    return glue.resize(im, (out_h, out_w), "bicubic")
+    with span("resize"):
+        return glue.resize(im, (out_h, out_w), "bicubic")
 
 
 def update_next_pyramidal_level(
@@ -116,23 +123,25 @@ def update_next_pyramidal_level(
     y_dim, x_dim = glue.shape(im1_next.shape)
     y_prev, x_prev = glue.shape(prev_shape)
 
-    if (x_prev, y_prev) != (x_dim, y_dim):
-        us_new = glue.upsample(u_accum, (y_dim, x_dim))
-        vs_new = glue.upsample(v_accum, (y_dim, x_dim))
-    else:
-        us_new = u_accum
-        vs_new = v_accum
+    with span("upsample"):
+        if (x_prev, y_prev) != (x_dim, y_dim):
+            us_new = glue.upsample(u_accum, (y_dim, x_dim))
+            vs_new = glue.upsample(v_accum, (y_dim, x_dim))
+        else:
+            us_new = u_accum
+            vs_new = v_accum
 
-    if scale:
-        us_new = us_new * float(np.float32(x_dim) / np.float32(x_prev))
-        vs_new = vs_new * float(np.float32(y_dim) / np.float32(y_prev))
+        if scale:
+            us_new = us_new * float(np.float32(x_dim) / np.float32(x_prev))
+            vs_new = vs_new * float(np.float32(y_dim) / np.float32(y_prev))
 
     zeros = torch.zeros(im1_next.shape[-2:], dtype=torch.float32, device=im1_next.device)
     if warping:
-        if bi_linear:
-            im1_next, im2_next = glue.warp_pair(im1_next, im2_next, us_new, vs_new)
-        else:
-            im1_next = glue.warp(im1_next, us_new, vs_new)
+        with span("warp"):
+            if bi_linear:
+                im1_next, im2_next = glue.warp_pair(im1_next, im2_next, us_new, vs_new)
+            else:
+                im1_next = glue.warp(im1_next, us_new, vs_new)
         return im1_next, im2_next, us_new, vs_new, zeros, zeros
     return im1_next, im2_next, zeros, zeros, us_new, vs_new
 
@@ -179,72 +188,80 @@ def generic_pyramidal_optical_flow(
     prev_shape = None
 
     for level in range(1, pyramidalLevels + 1):
-        local_scaling = pyramidalIntermediateScaling
-        if level == pyramidalLevels:
-            local_scaling = pyramidalScaling
+        with span(f"level{level}"):
+            local_scaling = pyramidalIntermediateScaling
+            if level == pyramidalLevels:
+                local_scaling = pyramidalScaling
 
-        if scale < 1.0 and level != pyramidalLevels:
-            im1_new = _imresize_bicubic(im1, scale, glue)
-            im2_new = _imresize_bicubic(im2, scale, glue)
-        elif scale > 1.0:
-            raise ValueError(f"Invalid scale level: {scale}")
-        else:
-            im1_new = im1
-            im2_new = im2
+            if scale < 1.0 and level != pyramidalLevels:
+                im1_new = _imresize_bicubic(im1, scale, glue)
+                im2_new = _imresize_bicubic(im2, scale, glue)
+            elif scale > 1.0:
+                raise ValueError(f"Invalid scale level: {scale}")
+            else:
+                im1_new = im1
+                im2_new = im2
 
-        if level > 1:
-            im1_warp, im2_warp, u_accum, v_accum, u, v = update_next_pyramidal_level(
-                im1_new, prev_shape, im2_new, u_accum, v_accum, u, v,
-                warping, biLinear, local_scaling, glue,
-            )
-        else:
-            im1_warp, im2_warp = im1_new, im2_new
-            zeros = torch.zeros(im1_new.shape, dtype=torch.float32, device=im1_new.device)
-            u = v = u_accum = v_accum = zeros
+            if level > 1:
+                im1_warp, im2_warp, u_accum, v_accum, u, v = update_next_pyramidal_level(
+                    im1_new, prev_shape, im2_new, u_accum, v_accum, u, v,
+                    warping, biLinear, local_scaling, glue,
+                )
+            else:
+                im1_warp, im2_warp = im1_new, im2_new
+                zeros = torch.zeros(im1_new.shape, dtype=torch.float32, device=im1_new.device)
+                u = v = u_accum = v_accum = zeros
 
-        if FILTER > 1e-3:
-            im1_work = glue.prefilter(im1_warp, FILTER, 3)
-            im2_work = glue.prefilter(im2_warp, FILTER, 3)
-        else:
-            im1_work, im2_work = im1_warp, im2_warp
+            if FILTER > 1e-3:
+                with span("prefilter"):
+                    im1_work = glue.prefilter(im1_warp, FILTER, 3)
+                    im2_work = glue.prefilter(im2_warp, FILTER, 3)
+            else:
+                im1_work, im2_work = im1_warp, im2_warp
 
-        if optionalOFlowAlgoAdapter is not None and FILTER_OPT > 1e-3:
-            im1_opt = glue.prefilter(im1_new, FILTER_OPT, 5)
-            im2_opt = glue.prefilter(im2_new, FILTER_OPT, 5)
-        elif optionalOFlowAlgoAdapter is not None:
-            im1_opt, im2_opt = im1_new, im2_new
+            if optionalOFlowAlgoAdapter is not None and FILTER_OPT > 1e-3:
+                with span("prefilter"):
+                    im1_opt = glue.prefilter(im1_new, FILTER_OPT, 5)
+                    im2_opt = glue.prefilter(im2_new, FILTER_OPT, 5)
+            elif optionalOFlowAlgoAdapter is not None:
+                im1_opt, im2_opt = im1_new, im2_new
 
-        for k in range(kLevels):
-            log.info("Level=%d kIter=%d", level, k)
-            if k > 0:
-                if warping:
-                    im1_warp, im2_warp, u_accum, v_accum, u, v = update_next_pyramidal_level(
-                        im1_new, im1_new.shape[-2:], im2_new, u_accum, v_accum, u, v,
-                        warping, biLinear, False, glue,
-                    )
-                    if FILTER > 1:
-                        im1_work = glue.prefilter(im1_warp, FILTER, 3)
-                        im2_work = glue.prefilter(im2_warp, FILTER, 3)
+            for k in range(kLevels):
+                log.info("Level=%d kIter=%d", level, k)
+                if k > 0:
+                    if warping:
+                        im1_warp, im2_warp, u_accum, v_accum, u, v = update_next_pyramidal_level(
+                            im1_new, im1_new.shape[-2:], im2_new, u_accum, v_accum, u, v,
+                            warping, biLinear, False, glue,
+                        )
+                        if FILTER > 1:
+                            with span("prefilter"):
+                                im1_work = glue.prefilter(im1_warp, FILTER, 3)
+                                im2_work = glue.prefilter(im2_warp, FILTER, 3)
+                        else:
+                            im1_work, im2_work = im1_warp, im2_warp
                     else:
-                        im1_work, im2_work = im1_warp, im2_warp
-                else:
-                    im1_work, im2_work, u_accum, v_accum, u, v = update_next_pyramidal_level(
-                        im1_work, im1_work.shape[-2:], im2_work, u_accum, v_accum, u, v,
-                        warping, biLinear, False, glue,
-                    )
+                        im1_work, im2_work, u_accum, v_accum, u, v = update_next_pyramidal_level(
+                            im1_work, im1_work.shape[-2:], im2_work, u_accum, v_accum, u, v,
+                            warping, biLinear, False, glue,
+                        )
 
-            u, v, error = mainOFlowAlgoAdapter.compute(im1_work, im2_work, u, v)
-            _log_error(mainOFlowAlgoAdapter, error)
+                with span("solve"):
+                    u, v, error = mainOFlowAlgoAdapter.compute(im1_work, im2_work, u, v)
+                _log_error(mainOFlowAlgoAdapter, error)
 
-            if optionalOFlowAlgoAdapter is not None:
-                u, v, error_opt = optionalOFlowAlgoAdapter.compute(im1_opt, im2_opt, u, v)
-                _log_error(optionalOFlowAlgoAdapter, error_opt)
+                if optionalOFlowAlgoAdapter is not None:
+                    with span("refine"):
+                        u, v, error_opt = optionalOFlowAlgoAdapter.compute(im1_opt, im2_opt,
+                                                                           u, v)
+                    _log_error(optionalOFlowAlgoAdapter, error_opt)
 
-            u_accum = u_accum + _as_image(u, im1.device)
-            v_accum = v_accum + _as_image(v, im1.device)
+                with span("accumulate"):
+                    u_accum = u_accum + _as_image(u, im1.device)
+                    v_accum = v_accum + _as_image(v, im1.device)
 
-        prev_shape = im1_work.shape[-2:]
-        scale *= 2
+            prev_shape = im1_work.shape[-2:]
+            scale *= 2
 
     return u_accum, v_accum
 
