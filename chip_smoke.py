@@ -238,7 +238,10 @@ def kernel_costs(h: int, w: int, hs_niter: int = 100, gn_steps: float = 5,
     build: the two-level sums' 10 adds per pass; FB updateMatrices ~100; FB
     blur + solve: 5 planes, 2 passes of 33 taps, a product and a sum each,
     and the solve; the fused loop: both a round, reading R0, R1 and the start
-    flow and writing the flow, or at 0 rounds copying the flow)."""
+    flow and writing the flow, or at 0 rounds copying the flow; the FB
+    expansion at polyN 7: 43 vertical and 87 horizontal taps, a product and
+    a sum each, and 8 for the combinations, reading the source and writing
+    the five planes)."""
     n = h * w
     core = (h + 31) * (w + 31)       # the LK gradient pair's planes
     slab = (h + 41) * (w + 41)       # the LK J slab at R = 5
@@ -252,6 +255,7 @@ def kernel_costs(h: int, w: int, hs_niter: int = 100, gn_steps: float = 5,
         "fb_update_matrices": (68 * n, 100 * n),
         "fb_blur5_flow": (28 * n, (5 * 2 * 33 * 2 + 15) * n),
         "fb_fused": ((56 if fb_rounds else 16) * n, fb_rounds * (100 + 675) * n),
+        "fb_poly_expand": (24 * n, (2 * (43 + 87) + 8) * n),
     }
 
 
@@ -349,11 +353,11 @@ def expected_kernels(name: str) -> set:
     if name == "lk_dense_solve_fused":
         return {"lk_fused"}
     if name == "fb_fused_solve":
-        return {"fb_fused"}
+        return {"fb_poly_expand", "fb_fused"}
     if name in LK_CONFIGS:
         return {"lk_build", "lk_gn"} | ({"liu_shen"} if name.startswith("LiuSE_") else set())
     if name in FB_CONFIGS:
-        return ({"fb_update_matrices", "fb_blur5_flow"}
+        return ({"fb_poly_expand", "fb_update_matrices", "fb_blur5_flow"}
                 | ({"liu_shen"} if name.startswith("LiuSE_") else set()))
     want = set()
     if not name.startswith("LiuSE_") or "HSchunck" in name:
@@ -393,8 +397,8 @@ def to_np(t):
 PARALLEL_SHAPE = (2048, 2048)
 # route 2 at PARALLEL_SHAPE: one configuration a solver (HS, HS + Liu-Shen,
 # LK, FB); at 512^2 every route-2 configuration runs
-ROUTE2_KERNELS = ("hs_jacobi", "warp_pair", "liu_shen", "lk_build", "lk_gn", "fb_update_matrices",
-                  "fb_blur5_flow")
+ROUTE2_KERNELS = ("hs_jacobi", "warp_pair", "liu_shen", "lk_build", "lk_gn", "fb_poly_expand",
+                  "fb_update_matrices", "fb_blur5_flow")
 ROUTE2_AT_2048 = ("HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", "LK_Fs2_0_PyrLvls2",
                   "FB_Fs0_0_PyrLvls2")
 PARALLEL_TIMEOUT_S = 420   # one spawned group, start-up included
@@ -910,7 +914,7 @@ def rank_main(argv) -> None:
     from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
     from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_dense_solve
     from opticalflow_ri_tpu_torch.ops.cuda import (
-        blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
+        blur5_flow, hs_iter, liu_shen_iter, lk_build, lk_iter, poly_expand, tent_sample, warp_tent,
     )
     from opticalflow_ri_tpu_torch.ops.gaussian import gaussian_filter_px
     from opticalflow_ri_tpu_torch.parallel import (
@@ -1043,6 +1047,7 @@ def rank_main(argv) -> None:
     sl = distributed.local_slices(m_rows, shape, rows)
     row_tiles = [t[sl].contiguous() for t in (pair[0], pair[1], zero, zero)]
     path_wrappers = {"lk_build": lk_build.lk_build_planes, "lk_gn": lk_iter.lk_gn_iterate,
+                     "fb_poly_expand": poly_expand.poly_expand,
                      "fb_update_matrices": tent_sample.update_matrices,
                      "fb_blur5_flow": blur5_flow.blur5_flow}
 
@@ -1187,6 +1192,7 @@ def rank_main(argv) -> None:
     route2_swaps = {"hs_jacobi": (hs_iter, "hs_iterate"), "warp_pair": (warp_tent, "warp_pair"),
                     "liu_shen": (liu_shen_iter, "liu_shen_iterate"),
                     "lk_build": (lk_build, "lk_build_planes"), "lk_gn": (lk_iter, "lk_gn_iterate"),
+                    "fb_poly_expand": (poly_expand, "poly_expand"),
                     "fb_update_matrices": (tent_sample, "update_matrices"),
                     "fb_blur5_flow": (blur5_flow, "blur5_flow")}
 
@@ -1557,9 +1563,11 @@ def main() -> None:
         DenseLucasKanadeAdapter, lk_dense_solve, lk_kernel_inputs,
     )
     from opticalflow_ri_tpu_torch.ops.cuda import (
-        build, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
+        build, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, poly_expand, tent_sample,
+        warp_tent,
     )
     from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow as fb_blur
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
     from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
     from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -1593,8 +1601,8 @@ def main() -> None:
         return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
 
     err = {"hs_jacobi": 0.0, "warp_pair": 0.0, "liu_shen": 0.0, "lk_build": 0.0,
-           "lk_gn": 0.0, "lk_fused": 0.0, "fb_update_matrices": 0.0, "fb_blur5_flow": 0.0,
-           "fb_fused": 0.0}
+           "lk_gn": 0.0, "lk_fused": 0.0, "fb_poly_expand": 0.0, "fb_update_matrices": 0.0,
+           "fb_blur5_flow": 0.0, "fb_fused": 0.0}
     # the HS kernel runs STEPS_PER_LAUNCH iterations a launch: every count
     # around that depth, 100 and 600 as the configs run them
     steps = hs_iter.STEPS_PER_LAUNCH
@@ -1839,6 +1847,27 @@ def main() -> None:
             raise AssertionError(f"{name} disagrees with its plain version ({label})")
         err[name] = max(err[name], d)
 
+    # the expansion, bit for bit: the whole-image source (the replicate
+    # rule's rows) at the pyramid's sizes and a partial last tile, and at
+    # 2048^2 an interior stripe whose aprons are its neighbours' rows
+    for shape in [(512, 512), (1024, 1024), (2048, 2048), (333, 517)]:
+        im = torch.as_tensor(particle_image_pair(shape=shape, seed=0)[0], device=dev)
+        for n, sigma in ((7, 1.5), (5, 1.1)):
+            cases = [("whole image", pad2d(im, ((n, n), (0, 0)), "nearest"))]
+            if shape == (2048, 2048):
+                cases.append(("stripe rows 512-1023", im[512 - n:1024 + n]))
+            for label, srcp in cases:
+                got = poly_expand.poly_expand(srcp, n, sigma)
+                want = poly_expand.poly_expand_plain(srcp, n, sigma)
+                torch.cuda.synchronize()
+                fb_compare("fb_poly_expand", f"{shape} {label} polyN {n} sigma {sigma}",
+                           [got], [want], 0.0)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"fb_poly_expand disagrees with its plain version at "
+                                         f"{shape}, {label}, polyN {n}")
+        del im, srcp, got, want
+        torch.cuda.empty_cache()
+
     for shape in [(512, 512), (333, 517), (2048, 2048)]:
         r0, r1 = fb_expansions(shape)
         cases = [("calibrated", 4.0, 5), ("wild", 20.0, 5)]
@@ -1951,7 +1980,7 @@ def main() -> None:
     wrappers = {"hs_jacobi": hs_iter.hs_iterate, "warp_pair": warp_tent.warp_pair,
                 "liu_shen": liu_shen_iter.liu_shen_iterate,
                 "lk_build": lk_build.lk_build_planes, "lk_gn": lk_iter.lk_gn_iterate,
-                "lk_fused": lk_iter.lk_fused,
+                "lk_fused": lk_iter.lk_fused, "fb_poly_expand": poly_expand.poly_expand,
                 "fb_update_matrices": tent_sample.update_matrices,
                 "fb_blur5_flow": fb_blur.blur5_flow, "fb_fused": fb_fused.fb_fused}
 
@@ -2061,8 +2090,8 @@ def main() -> None:
         swaps = [(hs_iter, "hs_iterate"), (warp_tent, "warp_pair"),
                  (liu_shen_iter, "liu_shen_iterate"), (lk_build, "lk_build_planes"),
                  (lk_iter, "lk_gn_iterate"), (lk_iter, "lk_fused"),
-                 (tent_sample, "update_matrices"), (fb_blur, "blur5_flow"),
-                 (fb_fused, "fb_fused")]
+                 (poly_expand, "poly_expand"), (tent_sample, "update_matrices"),
+                 (fb_blur, "blur5_flow"), (fb_fused, "fb_fused")]
         saved = [getattr(mod, attr) for mod, attr in swaps]
         for mod, attr in swaps:
             setattr(mod, attr, getattr(mod, attr + "_plain"))
@@ -2142,15 +2171,17 @@ def main() -> None:
     def time_kernel(name, shape, kernel_fn, plain_fn, reps, replays, key=None, gn=5, **info):
         """Event medians of kernel and plain in turns; the device time per
         call from graph replays (every kernel at 512^2, the redesigned HS,
-        Liu-Shen and LK kernels and the FB blur at 2048^2 too); the bound of
-        the call (``gn``: the mean GN steps a pixel runs on this input).
+        Liu-Shen and LK kernels and the FB expansion and blur at 2048^2 too);
+        the bound of the call (``gn``: the mean GN steps a pixel runs on this
+        input).
         Kept under ``key`` (default: the kernel's name)."""
         key = (key or name, shape)
         k, p = ab(kernel_fn, plain_fn, reps)
         kernel_times[key] = (k, p)
         rec = {"kernel": name, "shape": list(shape), **info, "kernel_ms": k, "plain_ms": p}
         if shape == (512, 512) or name in ("hs_jacobi", "liu_shen", "lk_build", "lk_gn",
-                                           "lk_fused", "fb_blur5_flow", "fb_fused"):
+                                           "lk_fused", "fb_poly_expand", "fb_blur5_flow",
+                                           "fb_fused"):
             device_times[key] = rec["device_ms"] = device_ms(kernel_fn, replays)
         bounds[key] = bound_ms(*kernel_costs(*shape, gn_steps=gn)[name])
         rec["bound_ms"], rec["bound_by"] = bounds[key]
@@ -2234,6 +2265,12 @@ def main() -> None:
         del slab, g_pair, fields, bargs, gargs, fargs
         # the Farneback kernels at the calibrated config: R = 5, window 33
         # Gaussian, 5 iterations for the fused loop
+        im = torch.as_tensor(particle_image_pair(shape=shape, seed=0)[0], device=dev)
+        srcp = pad2d(im, ((7, 7), (0, 0)), "nearest")
+        time_kernel("fb_poly_expand", shape, lambda: poly_expand.poly_expand(srcp, 7, 1.5),
+                    lambda: poly_expand.poly_expand_plain(srcp, 7, 1.5), reps, 50, polyN=7,
+                    sigma=1.5, input="whole image")
+        del im, srcp
         r0, r1 = fb_expansions(shape)
         fx, fy = rand(shape, -4, 4), rand(shape, -4, 4)
         time_kernel("fb_update_matrices", shape,
@@ -2640,7 +2677,8 @@ def main() -> None:
         shutil.rmtree(work, ignore_errors=True)
 
     # ---------------------------------------------------------------- result
-    # name: (source, the TPU kernel it replaces, the others it also replaces)
+    # name: (source, the TPU kernel it replaces or None, the others it also
+    # replaces)
     replaced = {
         "hs_jacobi": ("hs_jacobi.cu", "hs_iter.py:113", ["hs_tiled.py:164"]),
         "warp_pair": ("warp_pair.cu", "warp_tent.py:120", []),
@@ -2648,6 +2686,7 @@ def main() -> None:
         "lk_build": ("lk_build.cu", "lk_build.py:173", []),
         "lk_gn": ("lk_iter.cu", "lk_iter.py:153", []),
         "lk_fused": ("lk_iter.cu", "lk_iter.py:320", []),
+        "fb_poly_expand": ("fb_poly_expand.cu", None, []),
         "fb_update_matrices": ("fb_update_matrices.cu", "tent_sample.py:336",
                                ["tent_sample.py:223", "tent_sample.py:531"]),
         "fb_blur5_flow": ("fb_blur5_flow.cu", "blur5_flow.py:124", ["blur5_flow.py:196"]),
@@ -2657,7 +2696,7 @@ def main() -> None:
     for name, (src, tpu, also) in replaced.items():
         b, by = bounds[(name, (512, 512))]
         kern = {"name": name, "route": "cuda", "source": f"opticalflow_ri_tpu_torch/csrc/{src}",
-                "replaces": f"opticalflow_ri_tpu/ops/pallas/{tpu}",
+                "replaces": tpu and f"opticalflow_ri_tpu/ops/pallas/{tpu}",
                 "launches": launches[name], "max_abs_err": err[name],
                 "ms": kernel_times[(name, (512, 512))][0],
                 "plain_ms": kernel_times[(name, (512, 512))][1],
@@ -2674,6 +2713,8 @@ def main() -> None:
             kern["device_ms_of"] = "lk_build then lk_gn in one CUDA graph, less lk_build alone"
         if name == "fb_fused":  # the yardstick: the unfused rounds on the same input
             kern["unfused_device_ms"] = unfused_device[(512, 512)]
+        if tpu is None:  # the JAX package runs this stage as XLA ops
+            kern["internal"] = "port-internal: no TPU kernel"
         if (name, (512, 512)) in library_device_times:
             kern["library_device_ms"] = library_device_times[(name, (512, 512))]
         if name in sharded_err:  # the rows-sharded LK and FB solves' modes

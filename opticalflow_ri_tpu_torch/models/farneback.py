@@ -4,7 +4,8 @@ The solver of the JAX package (ref: src/Farneback_PyCL.py and
 src/optical_flow_farneback.cl), level by level:
   * polynomialExpansion -> nine separable g/xg/xxg correlations (replicate
     border) and the Gram-inverse combination (``poly_expansion``, the JAX
-    package's "vpu" stencil chain);
+    package's "vpu" stencil chain; ``ops/cuda/poly_expand.py:poly_expand``,
+    one Hopper kernel a frame on CUDA tensors);
   * updateMatrices -> R1 sampled at the flow-displaced position, blended
     with R0, border ramp, the five products of M
     (``ops/cuda/tent_sample.py:update_matrices``, the Hopper kernel on CUDA
@@ -12,7 +13,7 @@ src/optical_flow_farneback.cl), level by level:
   * gaussianBlur5 / boxFilter5 + updateFlow -> the window blur of M and the
     regularised 2x2 solve (``ops/cuda/blur5_flow.py:blur5_flow``, the Hopper
     kernel on CUDA tensors).
-CPU tensors run the plain PyTorch versions of both kernels.  The host-side
+CPU tensors run the plain PyTorch versions of the three kernels.  The host-side
 level plan, the PIL-bilinear flow rescaling and the bit-exact blur kernels
 (``ops/kernels_bitexact.py``) are the JAX package's.
 
@@ -33,50 +34,18 @@ the solve refuses raises ``ValueError`` (no single-device fallback).
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
-from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, tent_sample
+from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, poly_expand, tent_sample
 from opticalflow_ri_tpu_torch.ops.cuda.blur5_flow import update_flow  # noqa: F401
+from opticalflow_ri_tpu_torch.ops.cuda.poly_expand import prepare_poly_gaussian  # noqa: F401
 from opticalflow_ri_tpu_torch.ops.cuda.tent_sample import BORDER_RAMP, assemble_m  # noqa: F401
 from opticalflow_ri_tpu_torch.ops.kernels_bitexact import get_gaussian_kernel_bit_exact
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.resize import pil_resize
 from opticalflow_ri_tpu_torch.ops.stencil import correlate1d, correlate1d_padded
 from opticalflow_ri_tpu_torch.utils.timing import span
-
-
-@lru_cache(maxsize=None)
-def prepare_poly_gaussian(n: int, sigma: float):
-    """g/xg/xxg bases + Gram-inverse constants
-    (ref: src/Farneback_PyCL.py:124-172), host-side, cached."""
-    if sigma < 1.19209289550781250000000000000000000e-7:
-        sigma = n * 0.3
-    x = np.arange(-n, n + 1, dtype=np.float64)
-    g = np.exp(-x * x / (2 * sigma * sigma))
-    g = (g / g.sum()).astype(np.float32)
-    xg = (x * g).astype(np.float32)
-    xxg = (x * x * g).astype(np.float32)
-
-    G = np.zeros((6, 6), np.float64)
-    gd = g.astype(np.float64)
-    for yy in range(-n, n + 1):
-        for xx in range(-n, n + 1):
-            w = gd[yy + n] * gd[xx + n]
-            G[0, 0] += w
-            G[1, 1] += w * xx * xx
-            G[3, 3] += w * xx**4
-            G[5, 5] += w * xx * xx * yy * yy
-    G[2, 2] = G[0, 3] = G[0, 4] = G[3, 0] = G[4, 0] = G[1, 1]
-    G[4, 4] = G[3, 3]
-    G[3, 4] = G[4, 3] = G[5, 5]
-    inv = np.linalg.inv(G)
-    return g, xg, xxg, (
-        np.float32(inv[1, 1]), np.float32(inv[0, 3]),
-        np.float32(inv[3, 3]), np.float32(inv[5, 5]),
-    )
 
 
 def poly_expansion(src: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
@@ -88,28 +57,10 @@ def poly_expansion(src: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
 def poly_expansion_padded(srcp: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     """``poly_expansion`` of the (H, W) image that ``srcp`` holds with n more
     rows above and below it: the replicate rule's, or a neighbour's (a
-    rows-sharded stripe's halo, ``parallel/sharded_kernel.py``)."""
-    g, xg, xxg, (ig11, ig03, ig33, ig55) = prepare_poly_gaussian(n, float(sigma))
-    rows = srcp.shape[-2] - 2 * n
-    ve = correlate1d_padded(srcp, g, -2, rows)
-    vo = correlate1d_padded(srcp, xg, -2, rows)
-    vx2 = correlate1d_padded(srcp, xxg, -2, rows)
-
-    b1 = correlate1d(ve, g, axis=-1, mode="nearest")
-    b2 = correlate1d(ve, xg, axis=-1, mode="nearest")
-    b4 = correlate1d(ve, xxg, axis=-1, mode="nearest")
-    b3 = correlate1d(vo, g, axis=-1, mode="nearest")
-    b6 = correlate1d(vo, xg, axis=-1, mode="nearest")
-    b5 = correlate1d(vx2, g, axis=-1, mode="nearest")
-
-    ig11, ig03, ig33, ig55 = (float(c) for c in (ig11, ig03, ig33, ig55))
-    return torch.stack([
-        b3 * ig11,
-        b2 * ig11,
-        b1 * ig03 + b5 * ig33,
-        b1 * ig03 + b4 * ig33,
-        b6 * ig55,
-    ])
+    rows-sharded stripe's halo, ``parallel/sharded_kernel.py``).  CUDA
+    tensors launch the expansion kernel, CPU tensors run the plain chain
+    (``ops/cuda/poly_expand.py``)."""
+    return poly_expand.poly_expand(srcp, n, sigma)
 
 
 def _blur_kernel(n: int, sigma: float) -> np.ndarray:
@@ -180,13 +131,13 @@ def farneback_solve(im1, im2, u0, v0, window_size=33, n_iters=5, poly_n=7,
                     poly_sigma=1.5, use_gaussian=True, pyr_scale=0.5,
                     pyr_levels=1, impl: str = "auto"):
     """The whole Farneback pipeline (``models/farneback.py:497-546``); returns
-    (flowx, flowy).  ``impl="auto"`` is the only value: the two kernels on
+    (flowx, flowy).  ``impl="auto"`` is the only value: the three kernels on
     CUDA tensors, their plain versions on CPU tensors.  Under a profiler each
     frame's expansion is a span ``ofri.expand`` and the rounds ``ofri.iterate``."""
     if impl != "auto":
         raise ValueError(
-            f"impl={impl!r}: the port offers impl='auto' (the updateMatrices and blur + "
-            f"solve kernels); the JAX package's other values select TPU kernels")
+            f"impl={impl!r}: the port offers impl='auto' (the expansion, updateMatrices "
+            f"and blur + solve kernels); the JAX package's other values select TPU kernels")
     im1 = im1.to(torch.float32)
     im2 = im2.to(torch.float32)
     u0 = u0.to(torch.float32)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's HS Jacobi (K1/K2), Liu-Shen solve (K4/K5), LK plane build
 (K6), LK Gauss-Newton (K7) and fused LK (K8), Farneback window blur + solve
-(K12/K13), fused Farneback loop (K14) and pair warp (K3) kernels on one GPU.
+(K12/K13), fused Farneback loop (K14), Farneback expansion and pair warp (K3)
+kernels on one GPU.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--shapes 512 2048]
         [--hs-steps 4 8 16] [--hs-niters 100] [--ls-steps 4 8 12]
-        [--skip hs ls lk fb warp] [--configs NAME ...] [--reps 15]
+        [--skip hs ls lk fb expand warp] [--configs NAME ...] [--reps 15]
 
 For each square shape: HS (alpha 21, random derivatives of two uniform
 frames, zero flow); Liu-Shen (h = 10, fields of two uniform frames, zero
@@ -24,7 +25,12 @@ expansions from zero flow (33-tap Gaussian) at 0, 1 and 5 rounds (the
 fixed cost and the cost a round), with
 ``unfused_device_ms``, the same rounds as K9 then K12 (``fb_fused_plain``'s
 sequence on the kernels) in one CUDA graph, and ``bitwise`` against the plain
-loop; the pair warp on two uniform frames and |d| <= 4 flows, the
+loop; the FB expansion (polyN 7, polySigma 1.5) of a particle frame with
+the replicate rule's rows, as ``farneback_solve`` runs it
+(``poly_expansion_padded``: the kernel, or in a tree without it the
+PyTorch op chain, ``expansion_device_ms``), and where the tree has the
+kernel, the kernel against its plain version (``bitwise``, ``event_ms``,
+``device_ms``); the pair warp on two uniform frames and |d| <= 4 flows, the
 whole-image call and, where the tree has it, the caller-padded mode on an
 interior tile of half the height and width (``bitwise_whole_cropped``
 against the whole-image call).  Per kernel call it prints one JSON line with
@@ -72,7 +78,7 @@ def main() -> None:
     ap.add_argument("--hs-niters", type=int, nargs="+", default=[100])
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--ls-steps", type=int, nargs="*", default=[])
-    ap.add_argument("--skip", nargs="*", default=[], choices=["hs", "ls", "lk", "fb", "warp"])
+    ap.add_argument("--skip", nargs="*", default=[], choices=["hs", "ls", "lk", "fb", "expand", "warp"])
     ap.add_argument("--configs", nargs="*", default=[],
                     help="also time these configs end to end on the 512^2 pair")
     args = ap.parse_args()
@@ -84,7 +90,9 @@ def main() -> None:
         raise SystemExit("torch_kernel_times: needs a GPU")
     sys.path.insert(0, os.path.abspath(args.root))  # ahead of HERE
     from opticalflow_ri_tpu_torch.configs import run_config
-    from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_expansion
+    from opticalflow_ri_tpu_torch.models.farneback import (
+        _window_blur_spec, poly_expansion, poly_expansion_padded,
+    )
     from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
     from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
     from opticalflow_ri_tpu_torch.ops.cuda import blur5_flow, hs_iter, liu_shen_iter, lk_build
@@ -371,6 +379,32 @@ def main() -> None:
                      host_ms=host_ms(fused, reps), bound_ms=b, bound_by=by,
                      issue_floor_ms=2 * b)
             del r0, r1, m, z
+            torch.cuda.empty_cache()
+        if "expand" not in args.skip:
+            im_a, _, _, _ = particle_image_pair(shape=shape, seed=0)
+            srcp = pad2d(torch.as_tensor(im_a, device=dev), ((7, 7), (0, 0)), "nearest")
+            b, by = bound_ms(*kernel_costs(n, n)["fb_poly_expand"])
+            rec = dict(kernel="fb_poly_expand", shape=list(shape), poly_n=7, poly_sigma=1.5,
+                       expansion_device_ms=device_ms(
+                           lambda: poly_expansion_padded(srcp, 7, 1.5), 20),
+                       bound_ms=b, bound_by=by)
+            try:
+                from opticalflow_ri_tpu_torch.ops.cuda import poly_expand
+            except ImportError:  # a tree without the kernel
+                poly_expand = None
+            if poly_expand is not None:
+                def kernel():
+                    return poly_expand.poly_expand(srcp, 7, 1.5)
+
+                def plain():
+                    return poly_expand.poly_expand_plain(srcp, 7, 1.5)
+
+                k, p = ab(kernel, plain, reps)
+                rec.update(bitwise=torch.equal(kernel(), plain()), event_ms=k, plain_event_ms=p,
+                           device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 10),
+                           host_ms=host_ms(kernel, reps))
+            emit(**rec)
+            del srcp
             torch.cuda.empty_cache()
         if "warp" not in args.skip:
             # K3, the pair warp (|d| <= 4): the whole-image call, and where

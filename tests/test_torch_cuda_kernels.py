@@ -14,9 +14,12 @@ is held at every niter mod T (its iterations per launch) and at several T.
 The LK build equals its plain version bit for bit, with the symmetric, the
 asymmetric and a four-run window; so do the GN loop (px, py and status, on
 inputs whose pixels stop at every step from 0 to 5) and the fused build+GN
-(clusters of 8 and of 16, the three windows, a partial last tile).  The three Farneback kernels
-(updateMatrices, window blur + solve, the fused loop) equal their plain
-versions bit for bit; the fused loop from 2x2 to 2048^2, at 0 to 5 rounds,
+(clusters of 8 and of 16, the three windows, a partial last tile).  The four Farneback kernels
+(the polynomial expansion, updateMatrices, window blur + solve, the fused
+loop) equal their plain versions bit for bit; the expansion from 2x2 to
+2048^2 at polyN 5 and 7, on whole images and on stripes whose aprons are a
+neighbour's rows, and the FB configurations' replayed flows equal those of
+the plain expansion; the fused loop from 2x2 to 2048^2, at 0 to 5 rounds,
 1 to 129 taps and with the exact gather.
 """
 
@@ -31,8 +34,10 @@ from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_ex
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
 from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
 from opticalflow_ri_tpu_torch.ops.cuda import (
-    blur5_flow, build, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample, warp_tent,
+    blur5_flow, build, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, poly_expand,
+    tent_sample, warp_tent,
 )
+from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
@@ -460,6 +465,77 @@ def _fb_flow(dev, shape, dmax, seed=6):
     return _rand(rng, shape, -dmax, dmax, dev), _rand(rng, shape, -dmax, dmax, dev)
 
 
+POLY_SHAPES = [(2, 2), (5, 7), (47, 61), (333, 517), (2048, 2048)]
+
+
+def _poly_source(dev, shape, n, form, seed=7):
+    """(srcp, the whole image's plain expansion at srcp's rows): the image
+    with the replicate rule's n rows above and below it ("whole"), or an
+    interior stripe of a taller image with n rows of the neighbours' image
+    above and below it ("stripe")."""
+    rng = np.random.default_rng(seed + n)
+    m = 0 if form == "whole" else n + 3
+    im = _rand(rng, (shape[0] + 2 * m, shape[1]), 0, 255, dev)
+    padded = pad2d(im, ((n, n), (0, 0)), "nearest")
+    return padded[m:m + shape[0] + 2 * n].contiguous(), padded
+
+
+@pytest.mark.parametrize("shape", POLY_SHAPES)
+@pytest.mark.parametrize("n", [5, 7])
+@pytest.mark.parametrize("sigma", [1.1, 1.5])
+@pytest.mark.parametrize("form", ["whole", "stripe"])
+def test_poly_expand_kernel_equals_plain(dev, shape, n, sigma, form):
+    srcp, padded = _poly_source(dev, shape, n, form)
+    before = poly_expand.poly_expand.launches
+    got = poly_expand.poly_expand(srcp, n, sigma)
+    want = poly_expand.poly_expand_plain(srcp, n, sigma)
+    torch.cuda.synchronize()
+    assert poly_expand.poly_expand.launches == before + 1
+    assert got.shape == (5, *shape) and got.is_contiguous()
+    assert torch.equal(got, want)
+    if form == "stripe":  # the stripe's rows of the whole image's expansion
+        m = n + 3
+        whole = poly_expand.poly_expand_plain(padded, n, sigma)
+        assert torch.equal(got, whole[:, m:m + shape[0]])
+
+
+def test_poly_expand_launches_count_at_capture_only(dev):
+    """The wrapper counts its calls: a CUDA graph's capture counts one, its
+    replays none, and each replay writes the expansion again."""
+    srcp, _ = _poly_source(dev, (333, 517), 7, "whole")
+    want = poly_expand.poly_expand_plain(srcp, 7, 1.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        poly_expand.poly_expand(srcp, 7, 1.5)
+    torch.cuda.current_stream().wait_stream(side)
+    before = poly_expand.poly_expand.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = poly_expand.poly_expand(srcp, 7, 1.5)
+    assert poly_expand.poly_expand.launches == before + 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert poly_expand.poly_expand.launches == before + 1
+
+
+def test_poly_expand_rejects_bad_tensors(dev):
+    srcp, _ = _poly_source(dev, (16, 24), 7, "whole")
+    with pytest.raises(ValueError, match="contiguous"):
+        poly_expand.poly_expand(srcp.t().contiguous().t(), 7, 1.5)
+    with pytest.raises(TypeError, match="float32"):
+        poly_expand.poly_expand(srcp.double(), 7, 1.5)
+    with pytest.raises(ValueError, match="H \\+ 2n, W"):
+        poly_expand.poly_expand(srcp[None], 7, 1.5)
+    with pytest.raises(ValueError, match="odd tap count"):
+        poly_expand.poly_expand(srcp, 8, 1.5)
+    with pytest.raises(ValueError, match="at least 15 rows"):
+        poly_expand.poly_expand(srcp[:14], 7, 1.5)
+
+
 @pytest.mark.parametrize("shape", FB_SHAPES)
 @pytest.mark.parametrize("dmax", [4.0, 20.0], ids=["calibrated", "wild"])
 @pytest.mark.parametrize("R", [5, None], ids=["R5", "gather"])
@@ -561,11 +637,44 @@ def test_fb_wrappers_reject_bad_tensors(dev):
 @pytest.mark.parametrize("name", FB_NAMES)
 def test_fb_pipeline_on_card_matches_cpu(dev, name):
     im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
-    counters = (tent_sample.update_matrices, blur5_flow.blur5_flow, warp_tent.warp_pair,
-                liu_shen_iter.liu_shen_iterate, fb_fused.fb_fused)
+    counters = (poly_expand.poly_expand, tent_sample.update_matrices, blur5_flow.blur5_flow,
+                warp_tent.warp_pair, liu_shen_iter.liu_shen_iterate, fb_fused.fb_fused)
     before = [c.launches for c in counters]
     gu, gv = run_config(name, im1, im2, device=dev)
     cu, cv = run_config(name, im1, im2, device="cpu")
     launched = [c.launches > b for c, b in zip(counters, before)]
-    assert launched == [True, True, False, name.startswith("LiuSE_"), False]
+    assert launched == [True, True, True, False, name.startswith("LiuSE_"), False]
     assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+
+
+@pytest.mark.parametrize("name", FB_NAMES)
+def test_fb_graph_flows_equal_plain_expansion_flows(dev, name, monkeypatch):
+    """Each FB configuration replayed as one CUDA graph, the expansion
+    kernel inside it, gives the flows of the eager run with the plain
+    expansion (the PyTorch op chain) bit for bit; the expansions a run
+    launches (two frames a solver level) are counted at the capture, never
+    at a replay."""
+    from opticalflow_ri_tpu_torch.compile import CompiledPipeline
+
+    im1, im2, _, _ = particle_image_pair(shape=(96, 80), seed=4, max_disp=2.5)
+    im1, im2 = torch.as_tensor(im1, device=dev), torch.as_tensor(im2, device=dev)
+    counter = poly_expand.poly_expand
+    before = counter.launches
+    run_config(name, im1, im2)
+    per_run = counter.launches - before
+    assert per_run == {"FB_Fs0_0": 2, "FB_Fs0_0_PyrLvls2": 4}.get(name, per_run) > 0
+    fn = CompiledPipeline(name)
+    try:
+        fn.warm_up(im1, im2)
+        before = counter.launches
+        got = fn(im1, im2)  # the capture, then a replay
+        assert counter.launches == before + per_run
+        again = fn(im1, im2)
+        torch.cuda.synchronize()
+        assert counter.launches == before + per_run
+    finally:
+        fn.release()
+    monkeypatch.setattr(poly_expand, "poly_expand", poly_expand.poly_expand_plain)
+    want = run_config(name, im1, im2)
+    for flows in (got, again):
+        assert all(torch.equal(g, w) for g, w in zip(flows, want))

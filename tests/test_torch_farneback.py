@@ -65,7 +65,7 @@ def _particle_m(shape, seed=7):
 # ------------------------------------------------------------- plain helpers
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("n,sigma", [(7, 1.5), (5, 1.1)])
+@pytest.mark.parametrize("n,sigma", [(7, 1.5), (5, 1.1), (9, 2.0)])
 def test_poly_expansion_matches_jax(shape, n, sigma):
     im = _images(shape, 0)[0]
     want = np.asarray(jfb.poly_expansion(jnp.asarray(im), n, sigma, impl="vpu"))

@@ -28,7 +28,12 @@ Here:
   * a NumPy model of the persistent schedule of ``csrc/fb_fused.cu`` (G
     blocks walking T tiles, each tile blurred from its halo by the tile
     routine's passes, M in two ping-pong buffers, the flow written in the last
-    round only) against ``fb_fused_plain`` bit for bit.
+    round only) against ``fb_fused_plain`` bit for bit;
+  * a PyTorch model of the tiles of ``csrc/fb_poly_expand.cu`` (each tile
+    staged with its n-row and n-column aprons, the vertical then the
+    horizontal sums from -0 with zero taps skipped, the combinations)
+    against ``poly_expansion`` bit for bit, on whole images and on stripes
+    whose aprons are a neighbour's rows; and what ``poly_expand`` takes.
 """
 
 import importlib.util
@@ -42,7 +47,7 @@ import torch
 
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
 from opticalflow_ri_tpu_torch.ops.cuda import (
-    blur5_flow, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, tent_sample,
+    blur5_flow, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, poly_expand, tent_sample,
 )
 from opticalflow_ri_tpu_torch.ops.padding import _pad_index
 from opticalflow_ri_tpu_torch.ops.stencil import TWELFTH, correlate1d
@@ -613,6 +618,136 @@ def test_fb_persistent_schedule_equals_plain(shape, n_iters, window, n):
         got = _fb_persistent(r0, r1, fx0, fy0, n_iters, taps, mode, scale, tile, 3)
         for g, w_ in zip(got, want):
             np.testing.assert_array_equal(g, w_.numpy())
+
+
+# ---------------------------------------------------------------- Farneback expansion: tiles
+
+def test_poly_expand_tile_matches_kernel():
+    """The tile and the largest n the wrapper documents and the model takes
+    are the kernel's."""
+    src = (CSRC / "fb_poly_expand.cu").read_text()
+    assert int(re.search(r"int kTH = (\d+);", src).group(1)) == poly_expand.TILE_ROWS
+    assert int(re.search(r"int kTW = (\d+);", src).group(1)) == poly_expand.TILE_COLS
+    assert int(re.search(r"int kMaxN = (\d+);", src).group(1)) == poly_expand.MAX_N
+
+
+def _sums(x, taps, axis, size):
+    """One correlation as the kernel sums it: from -0, each non-zero tap's
+    product added in index order."""
+    shape = list(x.shape)
+    shape[axis] = size
+    acc = torch.full(shape, -0.0)
+    for j, t in enumerate(taps):
+        if t != 0.0:
+            acc = acc + x.narrow(axis, j, size) * float(t)
+    return acc
+
+
+def _poly_expand_tiles(srcp, n, sigma, tile):
+    """csrc/fb_poly_expand.cu's tiles in float32: each (th, tw) tile staged
+    with its n-row and n-column aprons (rows from srcp, clamped at its last;
+    columns clamped into the image), the g, xg and xxg sums down every staged
+    column, the six sums along the tile's rows, the five combinations, and
+    the outputs inside the image written.  Checks that each pixel is written
+    once."""
+    th, tw = tile
+    g, xg, xxg, consts = poly_expand.prepare_poly_gaussian(n, sigma)
+    ig11, ig03, ig33, ig55 = (float(c) for c in consts)
+    h, w = srcp.shape[0] - 2 * n, srcp.shape[1]
+    out = torch.full((5, h, w), float("nan"))
+    writes = torch.zeros((h, w), dtype=torch.int64)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            rows = torch.arange(y0, y0 + th + 2 * n).clamp(max=h + 2 * n - 1)
+            cols = torch.arange(x0 - n, x0 + tw + n).clamp(0, w - 1)
+            s = srcp[rows][:, cols]
+            ve, vo, vq = (_sums(s, t, 0, th) for t in (g, xg, xxg))
+            b1, b2, b4 = (_sums(ve, t, 1, tw) for t in (g, xg, xxg))
+            b3, b6 = (_sums(vo, t, 1, tw) for t in (g, xg))
+            b5 = _sums(vq, g, 1, tw)
+            field = torch.stack([b3 * ig11, b2 * ig11, b1 * ig03 + b5 * ig33,
+                                 b1 * ig03 + b4 * ig33, b6 * ig55])
+            ys, xs = slice(y0, min(y0 + th, h)), slice(x0, min(x0 + tw, w))
+            out[:, ys, xs] = field[:, :ys.stop - y0, :xs.stop - x0]
+            writes[ys, xs] += 1
+    assert bool((writes == 1).all())
+    return out
+
+
+POLY_TILES = [(poly_expand.TILE_ROWS, poly_expand.TILE_COLS), (8, 16)]
+POLY_BASES = [(7, 1.5), (5, 1.1), (7, 0.3)]  # sigma 0.3: zero and subnormal taps in g's tails
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (5, 7), (3, 14), (37, 70), (47, 61)])
+@pytest.mark.parametrize("n,sigma", POLY_BASES)
+def test_poly_expand_tiles_equal_plain(shape, n, sigma):
+    """The kernel's tile and an 8x16 one (tiles that straddle every edge;
+    images narrower and shorter than 2n + 1) against ``poly_expansion``."""
+    from opticalflow_ri_tpu_torch.models.farneback import poly_expansion
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
+
+    if n == 7 and sigma == 0.3:
+        g = poly_expand.prepare_poly_gaussian(n, sigma)[0]
+        assert (g == 0).any() and ((g != 0) & (np.abs(g) < np.finfo(np.float32).tiny)).any()
+    rng = np.random.default_rng(sum(shape) + n)
+    im = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+    want = poly_expansion(im, n, sigma)
+    srcp = pad2d(im, ((n, n), (0, 0)), "nearest")
+    for tile in POLY_TILES:
+        np.testing.assert_array_equal(_poly_expand_tiles(srcp, n, sigma, tile).numpy(),
+                                      want.numpy())
+
+
+@pytest.mark.parametrize("row0,rows", [(0, 20), (20, 17), (37, 10), (11, 1)],
+                         ids=["top", "interior", "bottom", "one-row"])
+@pytest.mark.parametrize("n,sigma", POLY_BASES[:2])
+def test_poly_expand_stripe_tiles_equal_whole_image(row0, rows, n, sigma):
+    """A rows-sharded stripe: n rows of the neighbours' image above and
+    below it (the replicate rule's on the image's own border), as
+    ``_fb_expansion_local`` hands it over; the model and the plain chain
+    equal the whole image's rows."""
+    from opticalflow_ri_tpu_torch.models.farneback import poly_expansion
+    from opticalflow_ri_tpu_torch.ops.padding import pad2d
+
+    rng = np.random.default_rng(row0 + rows)
+    im = torch.from_numpy(rng.uniform(0, 255, (47, 61)).astype(np.float32))
+    srcp = pad2d(im, ((n, n), (0, 0)), "nearest")[row0:row0 + rows + 2 * n]
+    want = poly_expansion(im, n, sigma)[:, row0:row0 + rows].numpy()
+    np.testing.assert_array_equal(poly_expand.poly_expand_plain(srcp, n, sigma).numpy(), want)
+    for tile in POLY_TILES:
+        np.testing.assert_array_equal(_poly_expand_tiles(srcp, n, sigma, tile).numpy(), want)
+
+
+def test_poly_expand_takes_the_plain_chain_on_cpu():
+    from opticalflow_ri_tpu_torch.models.farneback import poly_expansion
+
+    rng = np.random.default_rng(2)
+    im = torch.from_numpy(rng.uniform(0, 255, (19, 23)).astype(np.float32))
+    before = poly_expand.poly_expand.launches
+    got = poly_expansion(im, 7, 1.5)
+    assert poly_expand.poly_expand.launches == before
+    assert got.shape == (5, 19, 23) and got.dtype == torch.float32 and got.is_contiguous()
+    srcp = torch.cat([im[:1]] * 7 + [im] + [im[-1:]] * 7)
+    np.testing.assert_array_equal(got.numpy(), poly_expand.poly_expand_plain(srcp, 7, 1.5).numpy())
+
+
+@pytest.mark.parametrize("n,rows,match", [(2.5, 20, "odd tap count"), (8, 30, "odd tap count"),
+                                          (0, 20, "odd tap count"), (7, 14, "at least 15 rows"),
+                                          (5, 10, "at least 11 rows")])
+def test_poly_expand_refuses_bad_arguments(n, rows, match):
+    """An even tap count 2n + 1 or one under 3, and a source without the
+    image's rows: refused on every device.  One past the kernel's 15 taps:
+    refused by the kernel's check only, the plain chain computes it."""
+    srcp = torch.zeros((rows, 9))
+    if n > poly_expand.MAX_N:
+        with pytest.raises(ValueError, match=match):
+            poly_expand.check_args(srcp, n, poly_expand.MAX_N)
+        for fn in (poly_expand.poly_expand, poly_expand.poly_expand_plain):
+            assert fn(srcp, n, 1.5).shape == (5, rows - 2 * n, 9)
+        return
+    for fn in (poly_expand.poly_expand, poly_expand.poly_expand_plain):
+        with pytest.raises(ValueError, match=match):
+            fn(srcp, n, 1.5)
 
 
 # ---------------------------------------------------------------- LK GN: the per-pixel exit
