@@ -47,6 +47,7 @@ from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.stencil import correlate3x3
 from opticalflow_ri_tpu_torch.ops.window_sums import runs_from_mask, wsum2d
 from opticalflow_ri_tpu_torch.utils.device import capturing, device_constant
+from opticalflow_ri_tpu_torch.utils.timing import span
 
 _GRID = 32
 _D_EPS = 1.192092896e-07
@@ -269,25 +270,32 @@ def lk_dense_solve(im1, im2, u0, v0, half_window: int = 13, n_iter: int = 5,
     ``impl="auto"`` builds the planes (kernel ``lk_build``) and then runs the
     GN loop (kernel ``lk_gn``); ``impl="fused"`` does both in one launch
     (kernel ``lk_fused``, the two-level window-sum order).  On CPU tensors
-    each runs its plain version.
+    each runs its plain version.  Under a profiler the solve fields are a
+    span ``ofri.precompute``, the plane build ``ofri.planes`` and the GN
+    loop with the flow it gives ``ofri.iterate``; the opt-in error map lies
+    outside them.
     """
     if impl not in ("auto", "fused"):
         raise ValueError(
             f"impl={impl!r}: the port offers impl='auto' (build + GN kernels) and "
             f"impl='fused'; the JAX package's other values select TPU VMEM layouts")
     hw, R = int(half_window), int(max_shift)
-    slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(im1, im2, u0, v0, hw, asym, R)
-    if impl == "fused":
-        px, py, status = lk_iter.lk_fused(slab, g_pair, *fields, n_iter, R, hw, runs_y, runs_x)
-    else:
-        t1s, t2s = lk_build.lk_build_planes(slab, g_pair, hw, R, runs_y, runs_x)
-        px, py, status = lk_iter.lk_gn_iterate(t1s, t2s, *fields, n_iter, R, hw)
-
-    ok = fields[5] > 0
-    jj, ii = pixel_grid(*ok.shape, ok.device)
-    u = torch.where(ok, px + hw - jj, u0.to(torch.float32))
-    v = torch.where(ok, py + hw - ii, v0.to(torch.float32))
-    status = torch.where(ok, status, torch.zeros_like(status))
+    with span("precompute"):
+        slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(im1, im2, u0, v0, hw, asym, R)
+    if impl == "auto":
+        with span("planes"):
+            t1s, t2s = lk_build.lk_build_planes(slab, g_pair, hw, R, runs_y, runs_x)
+    with span("iterate"):
+        if impl == "fused":
+            px, py, status = lk_iter.lk_fused(slab, g_pair, *fields, n_iter, R, hw, runs_y,
+                                              runs_x)
+        else:
+            px, py, status = lk_iter.lk_gn_iterate(t1s, t2s, *fields, n_iter, R, hw)
+        ok = fields[5] > 0
+        jj, ii = pixel_grid(*ok.shape, ok.device)
+        u = torch.where(ok, px + hw - jj, u0.to(torch.float32))
+        v = torch.where(ok, py + hw - ii, v0.to(torch.float32))
+        status = torch.where(ok, status, torch.zeros_like(status))
     if not calc_err:
         return u, v, status
     pad = lk_pad(R)

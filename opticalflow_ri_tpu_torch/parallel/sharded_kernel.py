@@ -68,6 +68,7 @@ from opticalflow_ri_tpu_torch.parallel.mesh import axis_group, axis_index, axis_
 from opticalflow_ri_tpu_torch.parallel.sharded_glue import (
     check_splits, pil_band, pil_resize_sharded,
 )
+from opticalflow_ri_tpu_torch.utils.timing import span
 
 _Y_ONLY = ("y",)
 
@@ -325,7 +326,9 @@ def lk_solve_sharded_kernel(mesh, im1, im2, u0, v0, half_window: int = 13, n_ite
     image of lk_pad(max_shift) rows (38 at R = 5), edge padding in x (the
     stripe is whole-width), then the solve fields, K6 on the stripe's slab
     and K7 in global rows (``row0``, ``img_h``).  No collective per
-    iteration: every pixel's Gauss-Newton loop is independent."""
+    iteration: every pixel's Gauss-Newton loop is independent.  The spans
+    are ``lk_dense_solve``'s: ``ofri.precompute`` (the halo exchange
+    included), ``ofri.planes`` and ``ofri.iterate``."""
     h_loc, w = im1.shape[-2], im1.shape[-1]
     my = axis_size(mesh, "y")
     if pick_lk_shard_stripe(mesh, (h_loc * my, w), half_window, max_shift) != h_loc:
@@ -340,16 +343,20 @@ def lk_solve_sharded_kernel(mesh, im1, im2, u0, v0, half_window: int = 13, n_ite
         return pad2d(zy, ((0, 0), (pad, pad)), "nearest")
 
     u0, v0 = _sh._f32(u0, v0)
-    slab, g_pair, fields, runs_y, runs_x = lk.lk_kernel_inputs_padded(
-        pad_full(im1), pad_full(im2), u0, v0, hw, asym, R, row0)
-    t1, t2 = lk_build.lk_build_planes(slab, g_pair, hw, R, runs_y, runs_x)
-    px, py, status = lk_iter.lk_gn_iterate(t1, t2, *fields, n_iter, R, hw, row0=row0,
-                                           img_h=h_loc * my, img_w=w)
-    ok = fields[5] > 0
-    jj, ii = lk.pixel_grid(h_loc, w, ok.device, row0)
-    u = torch.where(ok, px + hw - jj, u0)
-    v = torch.where(ok, py + hw - ii, v0)
-    return u, v, torch.where(ok, status, torch.zeros_like(status))
+    with span("precompute"):
+        slab, g_pair, fields, runs_y, runs_x = lk.lk_kernel_inputs_padded(
+            pad_full(im1), pad_full(im2), u0, v0, hw, asym, R, row0)
+    with span("planes"):
+        t1, t2 = lk_build.lk_build_planes(slab, g_pair, hw, R, runs_y, runs_x)
+    with span("iterate"):
+        px, py, status = lk_iter.lk_gn_iterate(t1, t2, *fields, n_iter, R, hw, row0=row0,
+                                               img_h=h_loc * my, img_w=w)
+        ok = fields[5] > 0
+        jj, ii = lk.pixel_grid(h_loc, w, ok.device, row0)
+        u = torch.where(ok, px + hw - jj, u0)
+        v = torch.where(ok, py + hw - ii, v0)
+        status = torch.where(ok, status, torch.zeros_like(status))
+    return u, v, status
 
 
 def fb_shard_supported(mesh, shape, window_size: int, R: int = 5) -> bool:

@@ -66,6 +66,13 @@ TREES = {
         ("refine", "precompute"): 2, ("refine", "iterate"): 2},
     # FILTER 0 and Farneback's defaults (no warping): one expansion a frame a level
     "FB_Fs0_0_PyrLvls2": {**LEVELS, ("solve", "expand"): 4, ("solve", "iterate"): 2},
+    # FILTER 2.0 and FILTER_OPT 0.48 prefilter each level; LK's defaults (no warping):
+    # the solve fields, K6's planes and K7's loop a level, then Liu-Shen
+    "LiuSE_denseLK_Fs2_0_PyrLvls2": {
+        **LEVELS, ("level1", "prefilter"): 2, ("level1", "refine"): 1,
+        ("level2", "prefilter"): 2, ("level2", "refine"): 1,
+        ("solve", "precompute"): 2, ("solve", "planes"): 2, ("solve", "iterate"): 2,
+        ("refine", "precompute"): 2, ("refine", "iterate"): 2},
 }
 
 
@@ -75,6 +82,74 @@ def test_eager_pyramid_span_tree(name):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         run_config(name, im1, im2, device="cpu")
     assert _tree(prof) == Counter(TREES[name])
+
+
+LK_STAGES = ("ofri.precompute", "ofri.planes", "ofri.iterate")
+
+
+def _ops_outside_stages(prof) -> tuple:
+    """(solve spans, the ``aten::`` ops inside a solve span but outside
+    its three LK stage spans, by name)."""
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e.start_thread_id())
+              for e in prof.profiler.kineto_results.events()]
+    solves = [e for e in events if e[0] == "ofri.solve"]
+    stages = [e for e in events if e[0] in LK_STAGES]
+    outside = Counter()
+    for _, s, e, t in solves:
+        for name, s2, e2, t2 in events:
+            if not name.startswith("aten::") or t2 != t or not (s <= s2 and e2 <= e):
+                continue
+            if not any(t3 == t and s3 <= s2 and e2 <= e3 for _, s3, e3, t3 in stages):
+                outside[name] += 1
+    return solves, outside
+
+
+def test_lk_solve_ops_lie_in_its_stage_spans():
+    """Every op of dense LK's solve, on both levels, lies under
+    ``ofri.precompute``, ``ofri.planes`` or ``ofri.iterate``."""
+    im1, im2, _, _ = particle_image_pair(shape=(64, 64), seed=3, max_disp=2.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_config("LiuSE_denseLK_Fs2_0_PyrLvls2", im1, im2, device="cpu")
+    solves, outside = _ops_outside_stages(prof)
+    assert len(solves) == 2
+    assert not outside, outside
+
+
+SHARDED_LK = """
+import json, sys
+from collections import Counter
+import torch
+from torch.profiler import ProfilerActivity, profile
+from opticalflow_ri_tpu_torch.parallel import distributed
+from opticalflow_ri_tpu_torch.parallel.mesh import make_mesh
+from opticalflow_ri_tpu_torch.parallel.sharded_kernel import lk_solve_sharded_kernel
+from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
+distributed.initialize(sys.argv[1], 1, 0, device="cpu")
+mesh = make_mesh(shape=(1, 1, 1), device_type="cpu")
+im1, im2, _, _ = particle_image_pair(shape=(48, 64), seed=4, max_disp=2.0)
+a, b = torch.from_numpy(im1), torch.from_numpy(im2)
+z = torch.zeros_like(a)
+with profile(activities=[ProfilerActivity.CPU]) as prof:
+    lk_solve_sharded_kernel(mesh, a, b, z, z)
+names = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                if e.name().startswith("ofri."))
+print(json.dumps(names))
+"""
+
+
+def test_sharded_lk_solve_opens_the_stage_spans(tmp_path):
+    """The rows-sharded solve on a one-rank gloo group opens the three spans
+    once each (the halo exchange under ``ofri.precompute``)."""
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", SHARDED_LK, f"file://{tmp_path}/rdv"],
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr[-2000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert names == {"ofri.precompute": 1, "ofri.planes": 1, "ofri.iterate": 1}, names
 
 
 def test_runner_trace_names_its_threads_stages(tmp_path):
