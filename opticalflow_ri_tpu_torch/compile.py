@@ -23,9 +23,19 @@ there is no eager fallback on the card.  CPU inputs (``device="cpu"``, or
 CPU tensors) run the eager path.  A kernel wrapper's ``launches`` counter
 counts at capture, not at replay.
 
+Host frames (numpy arrays) reach a graph through two page-locked staging
+slots that the pipeline owns beside it, each a (2, H, W) float32 buffer
+with an event, allocated at the first host pair of a shape: a pair is
+copied into one slot on the host and from there straight into the graph's
+input buffers, without waiting on the card (``_to_device``).  A scan of
+host stacks stages pair i + 1 while the card runs replay i, the slots
+taking turns, so no stack is pinned or copied whole.  Device tensors (the
+campaign runner uploads its own) are copied into the inputs on the device
+and never touch the slots.
+
 Under a ``torch.profiler`` session a call names its stages
-(``utils/timing.span``): ``ofri.pin`` (a frame's host copy into pinned
-memory), ``ofri.h2d`` (its copies into the graph's input), ``ofri.replay``,
+(``utils/timing.span``): ``ofri.pin`` (a frame's host copy into its slot),
+``ofri.h2d`` (its copy into the graph's input), ``ofri.replay``,
 ``ofri.clone`` (a pair's outputs), ``ofri.gather`` (a scan's slot copies)
 and ``ofri.capture`` (warm-up and capture at a new shape).
 
@@ -79,19 +89,60 @@ def _check_pair(im1, im2, ndim: int) -> tuple:
     return shape
 
 
-def _to_device(x, device: torch.device, into=None) -> torch.Tensor:
-    """``x`` as float32 on ``device``, copied on into the buffer ``into`` if
-    given: a tensor is cast in place on its own device, a numpy array goes
-    through pinned memory (``ofri.pin``) without waiting.  The copies are one
-    span ``ofri.h2d``."""
+def _on_host(x) -> bool:
+    """Whether a frame lies in host memory: a numpy array or a CPU tensor."""
+    return not isinstance(x, torch.Tensor) or x.device.type == "cpu"
+
+
+def _as_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``device``: the warm-up's own copy."""
     if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return x.to(device=device, dtype=torch.float32)
+
+
+class _Slots:
+    """The two page-locked staging slots of one graph's host pairs: each a
+    (2, H, W) float32 buffer and the event recorded after its copies to the
+    device.  ``turn`` is the slot the next pair takes."""
+
+    def __init__(self, h: int, w: int):
+        self.host = tuple(torch.empty((2, h, w), dtype=torch.float32, pin_memory=True)
+                          for _ in range(2))
+        self.copied = tuple(torch.cuda.Event() for _ in range(2))
+        self.turn = 0
+
+
+def _to_device(pair, inputs, slots: _Slots | None) -> None:
+    """Copy ``pair`` into the graph's ``inputs`` on the current stream.
+
+    A device tensor is cast on its device and copied (``ofri.h2d``).  Host
+    frames are staged through ``slots``: the host waits on the event of the
+    slot whose turn it is, so that slot's previous copy to the device has
+    finished; then, a frame at a time, it copies the frame into the slot
+    with a plain host copy (``ofri.pin``) and enqueues a non-blocking copy
+    from the slot straight into the input (``ofri.h2d``); last it records
+    the slot's event.  Nothing else waits on the card, so in a scan the host
+    stages pair i + 1 into one slot while the card runs replay i, whose pair
+    came through the other.  Stream order makes the overwrite safe: each
+    input copy follows the replay that read the input last and precedes the
+    one that reads it next.  The caller's frames are copied in full when
+    this returns."""
+    slot = None
+    if slots is not None:
+        slot, slots.turn = slots.turn, slots.turn ^ 1
+        slots.copied[slot].synchronize()
+    for j, (x, into) in enumerate(zip(pair, inputs)):
+        if not _on_host(x):
+            with span("h2d"):
+                into.copy_(x.to(device=into.device, dtype=torch.float32))
+            continue
         with span("pin"):
-            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).pin_memory()
-    with span("h2d"):
-        x = x.to(device=device, dtype=torch.float32, non_blocking=x.is_pinned())
-        if into is not None:
-            into.copy_(x)
-    return x
+            np.copyto(slots.host[slot][j].numpy(), np.asarray(x), casting="unsafe")
+        with span("h2d"):
+            into.copy_(slots.host[slot][j], non_blocking=True)
+    if slot is not None:
+        slots.copied[slot].record(torch.cuda.current_stream(inputs[0].device))
 
 
 class _Graph(NamedTuple):
@@ -112,6 +163,7 @@ class CompiledPipeline:
         self.name = name
         self._run = build_config(name).run if run is None else run
         self._graphs: dict = {}   # (h, w, device) -> _Graph
+        self._slots: dict = {}    # (h, w, device) -> _Slots, from its first host pair
         self._warm: set = set()   # (h, w, device) run once eagerly
 
     def __call__(self, im1, im2, device="cuda"):
@@ -124,8 +176,9 @@ class CompiledPipeline:
 
     def replay(self, im1, im2, device="cuda"):
         """Copy the pair into the graph of its shape (captured at the first
-        call) and replay it on the current stream; returns the graph's own
-        output buffers, which the next replay overwrites."""
+        call), host frames through the shape's staging slots, and replay it
+        on the current stream; returns the graph's own output buffers, which
+        the next replay overwrites."""
         dev = _device_of(im1, device)
         if dev.type != "cuda":
             raise ValueError(f"replay runs a CUDA graph, not on {dev}")
@@ -134,8 +187,12 @@ class CompiledPipeline:
         if g is None:
             with span("capture"):
                 g = self._graphs[key] = self._capture(key, im1, im2)
-        for buf, im in zip(g.inputs, (im1, im2)):
-            _to_device(im, dev, into=buf)
+        slots = None
+        if _on_host(im1) or _on_host(im2):
+            slots = self._slots.get(key)
+            if slots is None:
+                slots = self._slots[key] = _Slots(*key[:2])
+        _to_device((im1, im2), g.inputs, slots)
         with span("replay"):
             g.graph.replay()
         return g.outputs
@@ -152,7 +209,7 @@ class CompiledPipeline:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._run(_to_device(im1, dev), _to_device(im2, dev), device=dev)
+                self._run(_as_device(im1, dev), _as_device(im2, dev), device=dev)
             torch.cuda.current_stream(dev).wait_stream(side)
         self._warm.add(key)
 
@@ -168,8 +225,9 @@ class CompiledPipeline:
         return _Graph(inputs, graph, outputs)
 
     def release(self) -> None:
-        """Free every captured graph with its memory pool and buffers; the
-        next call at a shape captures again."""
+        """Free every captured graph with its memory pool and buffers, and
+        the staging slots; the next call at a shape captures again."""
+        self._slots = {}
         graphs, self._graphs = self._graphs, {}
         for g in graphs.values():
             g.graph.reset()
@@ -191,22 +249,34 @@ def scan_pipeline(name: str):
     the pairs run one after another on the device with the single-pair
     working set.  On CUDA each pair is a replay of ``compiled_pipeline
     (name)``'s graph for (H, W), its flow copied into slot k of the outputs,
-    with no host wait between pairs; on the CPU a loop over the eager path.
-    ``fn.release()`` frees the graphs."""
+    with no host wait between pairs: the host stages pair k + 1 of a host
+    stack while the card runs replay k (``_to_device``).  On the CPU a loop
+    over the eager path.  ``fn.release()`` frees the graphs and the slots.
+
+    Counters over all calls: ``fn.staged``, the pairs staged from host
+    memory; ``fn.overlapped``, those whose staging began while the previous
+    pair's replay was still in flight (an event recorded after it, queried)."""
     pipe = compiled_pipeline(name)
 
     def scanned(im1s, im2s, device="cuda"):
         k, h, w = _check_pair(im1s, im2s, 3)
         dev = _device_of(im1s, device)
         us, vs = (torch.empty((k, h, w), dtype=torch.float32, device=dev) for _ in range(2))
-        if dev.type == "cuda":
-            im1s, im2s = _to_device(im1s, dev), _to_device(im2s, dev)
+        cuda = dev.type == "cuda"
+        replayed = torch.cuda.Event() if cuda and (_on_host(im1s) or _on_host(im2s)) else None
         for i in range(k):
-            u, v = (pipe.replay if dev.type == "cuda" else pipe)(im1s[i], im2s[i], dev)
+            if replayed is not None:
+                scanned.staged += 1
+                scanned.overlapped += i > 0 and not replayed.query()
+            u, v = (pipe.replay if cuda else pipe)(im1s[i], im2s[i], dev)
             with span("gather"):
                 us[i].copy_(u)
                 vs[i].copy_(v)
+            if replayed is not None:
+                replayed.record(torch.cuda.current_stream(dev))
         return us, vs
 
+    scanned.staged = 0
+    scanned.overlapped = 0
     scanned.release = pipe.release
     return scanned

@@ -53,6 +53,23 @@ def test_scan_equals_per_pair_run_config(name):
     assert ut.device.type == "cpu" and torch.equal(ut, us)
 
 
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "tensor"])
+def test_cpu_scan_stages_nothing(as_tensor):
+    """The CPU runs the eager path pair by pair: no staging slot is made and
+    the counters stay where they were."""
+    im1s, im2s = _stack((40, 44), (12, 13))
+    if as_tensor:
+        im1s, im2s = torch.from_numpy(im1s), torch.from_numpy(im2s)
+    scan = scan_pipeline("HS_Fs0_0")
+    before = scan.staged, scan.overlapped
+    us, vs = scan(im1s, im2s, device="cpu")
+    assert (scan.staged, scan.overlapped) == before
+    assert compiled_pipeline("HS_Fs0_0")._slots == {}
+    for k in range(2):
+        u, v = tcfg.run_config("HS_Fs0_0", im1s[k], im2s[k], device="cpu")
+        assert torch.equal(us[k], u) and torch.equal(vs[k], v)
+
+
 def test_pipelines_are_cached_per_name():
     assert compiled_pipeline("HS_Fs3_4") is compiled_pipeline("HS_Fs3_4")
     assert scan_pipeline("HS_Fs3_4") is scan_pipeline("HS_Fs3_4")

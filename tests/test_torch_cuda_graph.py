@@ -9,9 +9,14 @@ JAX, with
 ``compile.compiled_pipeline`` captures one run of a configuration per
 (H, W, device) and replays it: every configuration's replay equals its eager
 run bit for bit, each replay computes the pair it was given (two pairs in
-turns), ``scan_pipeline`` equals the eager path pair by pair, and
-``release`` returns the graph's memory.
+turns), ``scan_pipeline`` equals the eager path pair by pair, host stacks
+staged pair by pair through the two slots equal the per-pair replays and
+the whole-stack path, and ``release`` returns the graph's memory and the
+slots.
 """
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -90,6 +95,69 @@ def test_scan_equals_eager_pairs(name, dev):
         assert torch.equal(us2, us)
     finally:
         scan.release()
+
+
+def _host_stack(shape, seeds):
+    pairs = [particle_image_pair(shape=shape, seed=s, max_disp=2.5)[:2] for s in seeds]
+    return tuple(np.stack([p[j] for p in pairs]).astype(np.float32) for j in range(2))
+
+
+def _whole_stack(scan, im1s, im2s, dev):
+    """The scan as it was before the staging slots: each stack pinned and
+    copied to the device whole, then replayed pair by pair from there."""
+    return scan(*(torch.from_numpy(s).pin_memory().to(dev) for s in (im1s, im2s)))
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (333, 517)], ids=["512x512", "333x517"])
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_scan_stages_host_stacks_pair_by_pair(k, shape, dev):
+    """Host stacks go through the two staging slots pair by pair: the flows
+    equal the per-pair replays and the whole-stack path bit for bit, for two
+    stacks in turns (slots and input buffers reused), and the counters count
+    each pair staged; device stacks stage nothing."""
+    name = "LiuSE_HS_Fs3_4_PyrLvls2"
+    stacks = [_host_stack(shape, range(s, s + k)) for s in (0, 100)]
+    pipe, scan = compiled_pipeline(name), scan_pipeline(name)
+    try:
+        want = []
+        for im1s, im2s in stacks:
+            pairs = [pipe(torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev))
+                     for a, b in zip(im1s, im2s)]
+            want.append(tuple(torch.stack([p[j] for p in pairs]) for j in range(2)))
+            assert _equal(_whole_stack(scan, im1s, im2s, dev), want[-1])
+        for _ in range(3):
+            for (im1s, im2s), w in zip(stacks, want):
+                staged, overlapped = scan.staged, scan.overlapped
+                got = scan(im1s, im2s)
+                assert scan.staged - staged == k
+                assert 0 <= scan.overlapped - overlapped <= k - 1
+                assert _equal(got, w)
+        staged, overlapped = scan.staged, scan.overlapped
+        device_stack = tuple(torch.as_tensor(s, device=dev) for s in stacks[1])
+        assert _equal(scan(*device_stack), want[1])
+        assert (scan.staged, scan.overlapped) == (staged, overlapped)
+    finally:
+        scan.release()
+
+
+def test_release_frees_the_slots(dev):
+    im1s, im2s = _host_stack((64, 80), range(3))
+    scan = scan_pipeline("HS_Fs3_4")
+    pipe = compiled_pipeline("HS_Fs3_4")
+    want = scan(im1s, im2s)
+    torch.cuda.synchronize()
+    (slots,) = pipe._slots.values()
+    held = [weakref.ref(t) for t in slots.host]
+    assert all(t.is_pinned() and t.shape == (2, 64, 80) for t in slots.host)
+    del slots
+    scan.release()
+    gc.collect()
+    assert pipe._slots == {} and all(r() is None for r in held)
+    # device stacks never make slots; host stacks make them again
+    scan(*(torch.as_tensor(s, device=dev) for s in (im1s, im2s)))
+    assert pipe._slots == {}
+    assert _equal(scan(im1s, im2s), want) and len(pipe._slots) == 1
+    scan.release()
 
 
 def test_release_frees_the_pool(dev):

@@ -110,7 +110,8 @@ def test_entry_spans_per_call(dev):
         scan(*stack, device=dev)
         torch.cuda.synchronize()
     got = Counter(n for n, _, _ in _events(prof)[2])
-    # the stacks are pinned and copied once; each pair copies its device frames
-    assert got == Counter({"ofri.pin": 2, "ofri.h2d": 2 + 2 * 3, "ofri.replay": 3,
+    # each pair is staged frame by frame, as a single call's: no stack is
+    # pinned or copied whole
+    assert got == Counter({"ofri.pin": 2 * 3, "ofri.h2d": 2 * 3, "ofri.replay": 3,
                            "ofri.gather": 3})
     pipe.release()
