@@ -24,9 +24,9 @@
 //     (models/lucas_kanade.py:lk_solve_fields) and the planes and c1, c2 are
 //     window sums of finite products.  px is never -0: px0 = (jj + u0) - hw
 //     and every update is a sum, and a sum of two values of opposite sign
-//     that cancel rounds to +0 (chip_smoke.py:gn_exit models the exit;
-//     tests/test_torch_kernel_plans.py holds it against the plain loop,
-//     px0 = +0 included).
+//     that cancel rounds to +0 (scripts/torch_kernel_times.py:gn_exit
+//     models the exit; tests/test_torch_kernel_plans.py holds it against
+//     the plain loop, px0 = +0 included).
 // The kernels rely on these two premises for inputs the LK solve makes; for
 // a non-finite field or a -0 origin they may differ from the plain loop.
 //
@@ -37,10 +37,11 @@
 //   What bounds it on an H100: bytes.  Per pixel 8 field reads and 3 writes
 //   (44 B) and 8 gathered plane reads per step it runs (32 B a step): at
 //   512^2 and 5 steps 53 MB, ~16 us at 3.35 TB/s.  The bound depends on the
-//   data: the per-pixel exit runs fewer steps (chip_smoke.gn_exit counts
-//   them), and a gather costs a whole 32-byte sector when the lanes of a
-//   warp read different planes (a rough flow: ~8x the bytes).  The smooth
-//   flows of PIV keep a warp's lanes on one or two planes a load.
+//   data: the per-pixel exit runs fewer steps (gn_exit in
+//   scripts/torch_kernel_times.py counts them), and a gather costs a whole
+//   32-byte sector when the lanes of a warp read different planes (a rough
+//   flow: ~8x the bytes).  The smooth flows of PIV keep a warp's lanes on
+//   one or two planes a load.
 //
 // lk_fused_kernel replaces ops/pallas/lk_iter.py:lk_fused_pallas
 // (_lk_fused_kernel): the build of ops/cuda/lk_build.py:lk_build_planes_plain

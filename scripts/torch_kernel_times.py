@@ -16,7 +16,7 @@ window) on a rolled noisy random pair; the LK GN loop (5 steps) on two
 inputs, the configs' own (the arguments ``lk_gn_iterate`` receives in one
 ``run_config("LK_Fs2_0")`` on the particle pair of that shape, seed 0) and a
 random per-pixel flow of |d| <= 4 on the rolled pair's planes, each with
-the mean GN steps a pixel runs (``chip_smoke.gn_exit``) and, on the
+the mean GN steps a pixel runs (``gn_exit``) and, on the
 configs' input, right after the build that writes its planes; the fused LK
 solve on the configs' input; the FB blur + solve at 33 taps, the
 Gaussian ("mirror") and the box ("nearest", post-scale 1/33^2) window, on
@@ -35,13 +35,14 @@ whole-image call and, where the tree has it, the caller-padded mode on an
 interior tile of half the height and width (``bitwise_whole_cropped``
 against the whole-image call).  Per kernel call it prints one JSON line with
   * ``event_ms``: median of CUDA-event intervals around one synchronised call,
-    the kernel and its plain PyTorch version in alternating turns, as
-    ``chip_smoke.py`` times them;
+    the kernel and its plain PyTorch version in alternating turns;
   * ``device_ms``: the call captured once in a CUDA graph and replayed
     back to back, events over the replays divided by their count: the
     device's time per call without the host's enqueue;
   * ``host_ms``: the host's time to enqueue one call (wall clock, no sync);
-  * ``bound_ms``: ``chip_smoke.bound_ms`` of ``chip_smoke.kernel_costs``.
+  * ``bound_ms``: the least time of the call (``bound_ms``): for K1, K4/K5, K6
+    and K7 the benchmark's own count of the stage (``pivbench/work.py``,
+    ``pivbench/lk_work.py``), for the others ``KERNEL_COSTS`` here.
 ``--hs-niters`` sets the HS iteration counts (default 100); ``--hs-steps``
 and ``--ls-steps`` repeat the HS and Liu-Shen kernels at those steps per
 launch (``hs_iter.STEPS_PER_LAUNCH``, ``liu_shen_iter.STEPS_PER_LAUNCH``; a
@@ -51,7 +52,8 @@ tree without it is timed at its own design).
 event intervals, and the host's enqueue time per call).  ``--root`` imports the
 package from another checkout, so that two trees can be compared in one
 machine session, one process each.  Needs a GPU; the last line is the
-card's name and power limit.
+card's name and power limit.  Importing the script needs no card: the
+card-side tests load ``capture_lk_args`` from it, the CPU tests ``gn_exit``.
 """
 
 from __future__ import annotations
@@ -67,7 +69,143 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-from chip_smoke import bound_ms, capture_lk_args, gn_exit, kernel_costs  # noqa: E402
+from pivbench import lk_work, work  # noqa: E402
+
+
+def _own(nbytes_per_px, ops_per_px):
+    return lambda h, w, **_: (nbytes_per_px * h * w, ops_per_px * h * w)
+
+
+def _lk_fused(h, w, gn_steps=5, **_):
+    """The J slab at R = 5, the gradient pair's planes, the eleven fields
+    and outputs; the two-level window sums' 10 adds a pass and ~60
+    operations a GN step."""
+    slab, core, n = (h + 41) * (w + 41), (h + 31) * (w + 31), h * w
+    return 4 * (slab + 2 * core + 11 * n), (2 * 121 * 21 + 60 * gn_steps) * n
+
+
+# (bytes, operations) of one call on an h x w image, each input read once and
+# each output written once, of the kernels the benchmark counts no stage for:
+# K3 (both images and four flows in, two out; 36 operations an image), K8 (at
+# R = 5 and ``gn_steps`` mean GN steps a pixel), K9 alone (~100 operations a
+# pixel), K12 alone (five planes, two passes of 33 taps, a product and a sum
+# each, and the 2x2 solve) and the FB expansion at polyN 7 (43 vertical and 87
+# horizontal taps, a product and a sum each, 8 for the combinations; the
+# source in, five planes out).  K14's rounds are the benchmark's
+# ``fb_iterate``.
+KERNEL_COSTS = {
+    "warp_pair": _own(32, 72),
+    "lk_fused": _lk_fused,
+    "fb_update_matrices": _own(68, 100),
+    "fb_blur5_flow": _own(28, 5 * 2 * 33 * 2 + 15),
+    "fb_poly_expand": _own(24, 2 * (43 + 87) + 8),
+}
+
+
+def kernel_cost(name: str, h: int, w: int, niter: float = 100, gn_steps: float = 5,
+                rounds: int = 5) -> tuple:
+    """(bytes, operations) of one call of kernel ``name`` on an h x w image:
+    HS at ``niter`` iterations, Liu-Shen at ``niter`` steps, the LK build at
+    R = 5, K7 and K8 at ``gn_steps`` mean steps a pixel, K14 at ``rounds``
+    rounds of 33 taps."""
+    n = h * w
+    if name == "hs_jacobi":
+        return work.hs_iterate(n, niter)
+    if name == "liu_shen":
+        return work.ls_iterate(n, niter)
+    if name == "lk_build":
+        return lk_work.lk_build(h, w)
+    if name == "lk_gn":
+        return lk_work.lk_iterate(h, w, gn_steps)
+    if name == "fb_fused":
+        return work.fb_iterate(n, rounds)
+    return KERNEL_COSTS[name](h, w, gn_steps=gn_steps)
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple:
+    """The least time of a call in ms (``pivbench.work.least_seconds``), and
+    whether its bytes or its operations set it."""
+    by = "bytes" if nbytes / work.HBM_BYTES_PER_S >= ops / work.FP32_OPS_PER_S else "operations"
+    return 1e3 * work.least_seconds(nbytes, ops), by
+
+
+def capture_lk_args(run_config, lk_build, lk_iter, name, im1, im2):
+    """The arguments the LK build and GN wrappers receive during one
+    ``run_config(name, im1, im2)``, their last call each: (build args, GN
+    args).  The wrappers are swapped for recorders that call them, for this
+    run only."""
+    seen = {}
+    saved = lk_build.lk_build_planes, lk_iter.lk_gn_iterate
+
+    def recorder(key, fn):
+        def record(*args):
+            seen[key] = args
+            return fn(*args)
+        record.launches = fn.launches  # the wrapper counts through its module's name
+        return record
+
+    rec = recorder("build", saved[0]), recorder("gn", saved[1])
+    lk_build.lk_build_planes, lk_iter.lk_gn_iterate = rec
+    try:
+        run_config(name, im1, im2)
+    finally:
+        lk_build.lk_build_planes, lk_iter.lk_gn_iterate = saved
+        for fn, r in zip(saved, rec):
+            fn.launches = r.launches
+    return seen["build"], seen["gn"]
+
+
+def gn_exit(lk_iter, t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0, n_iter, R, hw):
+    """The GN loop as ``csrc/lk_iter.cu`` runs it, pixel by pixel as a vector:
+    each step runs the out-of-bounds bail on every pixel, then the rest of
+    the step only on the pixels still active (the others keep their state and
+    load nothing), and the loop ends when none is active.  Returns (px, py,
+    status, steps): steps is the (h, w) int64 count of the steps each pixel
+    ran (0: a singular window or a bail at the first step), which sets the
+    kernels' bound.  tests/test_torch_kernel_plans.py holds (px, py, status)
+    equal to ``lk_iter.lk_gn_iterate_plain`` bit for bit."""
+    import torch
+
+    nshift = 2 * R + 1
+    h, w = ia11.shape
+    dev = ia11.device
+    jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    flat = [t.reshape(nshift * nshift, h * w) for t in (t1, t2)]
+    offsets = torch.arange(h * w, device=dev).reshape(h, w)
+    px, py, active = px0.clone(), py0.clone(), act0.clone()
+    status = torch.ones((h, w), dtype=torch.float32, device=dev)
+    steps = torch.zeros((h, w), dtype=torch.int64, device=dev)
+    for _ in range(int(n_iter)):
+        oob = ((px < -hw) | (px >= w) | (py < -hw) | (py >= h)).to(torch.float32)
+        status = status * (1.0 - active * oob)
+        active = active * (1.0 - oob)
+        live = active != 0
+        if not bool(live.any()):
+            break
+        steps += live
+        uc = (px[live] + hw - jj[live]).clamp(-R, lk_iter.clip_hi(R))
+        vc = (py[live] + hw - ii[live]).clamp(-R, lk_iter.clip_hi(R))
+        sx, sy = torch.floor(uc), torch.floor(vc)
+        wx0 = (1.0 - (uc - sx).abs()).clamp_min(0.0)
+        wx1 = (1.0 - (uc - (sx + 1.0)).abs()).clamp_min(0.0)
+        wy0 = (1.0 - (vc - sy).abs()).clamp_min(0.0)
+        wy1 = (1.0 - (vc - (sy + 1.0)).abs()).clamp_min(0.0)
+        s00 = (sy.long() + R) * nshift + (sx.long() + R)
+        at = offsets[live]
+        sums = []
+        for tf in flat:
+            v = [tf[s00 + o, at] for o in (0, nshift, 1, nshift + 1)]
+            sums.append(wx0 * (wy0 * v[0] + wy1 * v[1]) + wx1 * (wy0 * v[2] + wy1 * v[3]))
+        b1, b2 = sums[0] - c1[live], sums[1] - c2[live]
+        dx = (ia12[live] * b2 - ia22[live] * b1) * 32.0
+        dy = (ia12[live] * b1 - ia11[live] * b2) * 32.0
+        a = active[live]
+        px[live] = px[live] + dx * a
+        py[live] = py[live] + dy * a
+        small = ((dx.abs() < lk_iter.STEP_EPS) & (dy.abs() < lk_iter.STEP_EPS)).to(torch.float32)
+        active[live] = a * (1.0 - small)
+    return px, py, status, steps
 
 
 def main() -> None:
@@ -188,7 +326,7 @@ def main() -> None:
                 if design > 1:
                     hs_iter.STEPS_PER_LAUNCH = steps
                 for niter in args.hs_niters:
-                    b, by = bound_ms(*kernel_costs(n, n, niter)["hs_jacobi"])
+                    b, by = bound_ms(*kernel_cost("hs_jacobi", n, n, niter))
 
                     def kernel(niter=niter):
                         return hs_iter.hs_iterate(fx, fy, ft, z, z, 21.0, niter)
@@ -223,8 +361,7 @@ def main() -> None:
                 if design > 1:
                     liu_shen_iter.STEPS_PER_LAUNCH = steps
                 for label, tol, k in (("fixed", 0.0, 60), ("early-stop", stop, k_stop)):
-                    nbytes, _ = kernel_costs(n, n)["liu_shen"]
-                    b, by = bound_ms(nbytes, 68 * k * n * n)
+                    b, by = bound_ms(*kernel_cost("liu_shen", n, n, k))
 
                     def kernel(tol=tol):
                         return liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, tol)
@@ -256,14 +393,14 @@ def main() -> None:
 
             k, p = ab(kernel, plain, reps)
             torch.cuda.empty_cache()
-            b, by = bound_ms(*kernel_costs(n, n)["lk_build"])
+            b, by = bound_ms(*kernel_cost("lk_build", n, n))
             emit(kernel="lk_build", shape=list(shape), shifts=121, event_ms=k, plain_event_ms=p,
                  device_ms=device_ms(kernel, 10 if n <= 1024 else 3), host_ms=host_ms(kernel, reps),
                  bound_ms=b, bound_by=by)
             # K7 on two inputs: the configs' own (what lk_gn_iterate receives in
             # one run_config("LK_Fs2_0") on the particle pair of this shape: a
             # smooth flow from u0 = v0 = 0) and a random per-pixel flow of
-            # |d| <= 4 on the rolled pair's planes (chip_smoke's parity input)
+            # |d| <= 4 on the rolled pair's planes (the card tests' parity input)
             im_a, im_b, _, _ = particle_image_pair(shape=shape, seed=0)
             bargs, cfg_gn = capture_lk_args(run_config, lk_build, lk_iter, "LK_Fs2_0",
                                             torch.as_tensor(im_a, device=dev),
@@ -278,7 +415,7 @@ def main() -> None:
                 steps = float(gn_exit(lk_iter, *gargs)[3].double().mean())
                 same = all(torch.equal(g, w_) for g, w_ in
                            zip(lk_iter.lk_gn_iterate(*gargs), lk_iter.lk_gn_iterate_plain(*gargs)))
-                b, by = bound_ms(*kernel_costs(n, n, gn_steps=steps)["lk_gn"])
+                b, by = bound_ms(*kernel_cost("lk_gn", n, n, gn_steps=steps))
 
                 def gn(gargs=gargs):
                     return lk_iter.lk_gn_iterate(*gargs)
@@ -317,7 +454,7 @@ def main() -> None:
                 return lk_iter.lk_fused_plain(*fargs)
 
             steps = float(gn_exit(lk_iter, *cfg_gn)[3].double().mean())
-            b, by = bound_ms(*kernel_costs(n, n, gn_steps=steps)["lk_fused"])
+            b, by = bound_ms(*kernel_cost("lk_fused", n, n, gn_steps=steps))
             same = all(torch.equal(g, w_) for g, w_ in zip(fused(), fused_plain()))
             k, p = ab(fused, fused_plain, reps if n <= 1024 else 3)
             emit(kernel="lk_fused", shape=list(shape), input="configs (LK_Fs2_0)",
@@ -335,7 +472,7 @@ def main() -> None:
                       for im in (im_a, im_b))
             z = torch.zeros(shape, device=dev)
             m = tent_sample.update_matrices(z, z, r0, r1)
-            b, by = bound_ms(*kernel_costs(n, n)["fb_blur5_flow"])
+            b, by = bound_ms(*kernel_cost("fb_blur5_flow", n, n))
             for window in ("gaussian", "box"):
                 taps, mode, scale = _window_blur_spec(33, window == "gaussian")
 
@@ -371,19 +508,21 @@ def main() -> None:
 
                 same = all(torch.equal(g, w_) for g, w_ in zip(fused(), fused_plain()))
                 k, p = ab(fused, fused_plain, reps)
-                b, by = bound_ms(*kernel_costs(n, n, fb_rounds=n_iters)["fb_fused"])
+                # at 0 rounds the kernel copies the flow: no round to bound
+                b, by = (bound_ms(*kernel_cost("fb_fused", n, n, rounds=n_iters)) if n_iters
+                         else (None, None))
                 emit(kernel="fb_fused", shape=list(shape), n_iters=n_iters, taps=33,
                      window="gaussian", bitwise=same, event_ms=k, plain_event_ms=p,
                      device_ms=device_ms(fused, 20),
                      unfused_device_ms=device_ms(unfused, 20) if n_iters else None,
                      host_ms=host_ms(fused, reps), bound_ms=b, bound_by=by,
-                     issue_floor_ms=2 * b)
+                     issue_floor_ms=2 * b if n_iters else None)
             del r0, r1, m, z
             torch.cuda.empty_cache()
         if "expand" not in args.skip:
             im_a, _, _, _ = particle_image_pair(shape=shape, seed=0)
             srcp = pad2d(torch.as_tensor(im_a, device=dev), ((7, 7), (0, 0)), "nearest")
-            b, by = bound_ms(*kernel_costs(n, n)["fb_poly_expand"])
+            b, by = bound_ms(*kernel_cost("fb_poly_expand", n, n))
             rec = dict(kernel="fb_poly_expand", shape=list(shape), poly_n=7, poly_sigma=1.5,
                        expansion_device_ms=device_ms(
                            lambda: poly_expansion_padded(srcp, 7, 1.5), 20),
@@ -421,7 +560,7 @@ def main() -> None:
                 return warp_tent.warp_pair_plain(*ims, *flows)
 
             k, p = ab(kernel, plain, reps)
-            b, by = bound_ms(*kernel_costs(n, n)["warp_pair"])
+            b, by = bound_ms(*kernel_cost("warp_pair", n, n))
             emit(kernel="warp_pair", shape=list(shape), mode="whole image", event_ms=k,
                  plain_event_ms=p, device_ms=device_ms(kernel, 50), host_ms=host_ms(kernel, reps),
                  bound_ms=b, bound_by=by)
@@ -442,7 +581,7 @@ def main() -> None:
                 same = all(torch.equal(g, w_[r0:r0 + th, c0:c0 + tw])
                            for g, w_ in zip(padded(), kernel()))
                 k, p = ab(padded, padded_plain, reps)
-                b, by = bound_ms(*kernel_costs(th, tw)["warp_pair"])
+                b, by = bound_ms(*kernel_cost("warp_pair", th, tw))
                 emit(kernel="warp_pair", shape=[th, tw], mode=f"padded, interior tile of {n}^2",
                      bitwise_whole_cropped=same, event_ms=k, plain_event_ms=p,
                      device_ms=device_ms(padded, 50), host_ms=host_ms(padded, reps),

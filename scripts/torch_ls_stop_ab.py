@@ -7,7 +7,7 @@
 DIR holds a checkout of the commit to compare with (``git archive`` of it,
 unpacked); this tree is the other side.  For each tree in the order parent,
 tree, tree, parent the script spawns a group of four gloo ranks (one process
-each, all on the one card, as ``chip_smoke.py``'s four-rank group) that
+each, all on the one card, as ``tests/test_torch_cuda_gloo.py`` spawns) that
 import the port from that tree.  Rank 0 times, at ``--size``² on
 ``particle_image_pair(seed=0)``:
 

@@ -8,7 +8,9 @@ JAX, with
 
 ``compile.compiled_pipeline`` captures one run of a configuration per
 (H, W, device) and replays it: every configuration's replay equals its eager
-run bit for bit, each replay computes the pair it was given (two pairs in
+run bit for bit (up to 512^2, and at 2048^2 one configuration a solver), its
+capture launches exactly the configuration's kernels (``expected_kernels``)
+and a replay none, each replay computes the pair it was given (two pairs in
 turns), ``scan_pipeline`` equals the eager path pair by pair, host stacks
 staged pair by pair through the two slots equal the per-pair replays and
 the whole-stack path, and ``release`` returns the graph's memory and the
@@ -24,9 +26,51 @@ import torch
 
 from opticalflow_ri_tpu_torch.compile import compiled_pipeline, scan_pipeline
 from opticalflow_ri_tpu_torch.configs import CONFIGS, run_config
+from opticalflow_ri_tpu_torch.ops.cuda import (
+    blur5_flow, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, poly_expand, tent_sample,
+    warp_tent,
+)
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
 
 pytestmark = pytest.mark.cuda
+
+# every kernel wrapper by the name the kernel tables use; each counts its calls
+WRAPPERS = {"hs_jacobi": (hs_iter, "hs_iterate"), "warp_pair": (warp_tent, "warp_pair"),
+            "liu_shen": (liu_shen_iter, "liu_shen_iterate"),
+            "lk_build": (lk_build, "lk_build_planes"), "lk_gn": (lk_iter, "lk_gn_iterate"),
+            "lk_fused": (lk_iter, "lk_fused"), "fb_poly_expand": (poly_expand, "poly_expand"),
+            "fb_update_matrices": (tent_sample, "update_matrices"),
+            "fb_blur5_flow": (blur5_flow, "blur5_flow"), "fb_fused": (fb_fused, "fb_fused")}
+
+
+def launches() -> dict:
+    return {k: getattr(mod, attr).launches for k, (mod, attr) in WRAPPERS.items()}
+
+
+LK_CONFIGS = ("denseLK_Fs2_0", "denseLK_Fs2_0_PyrLvls2", "LiuSE_denseLK_Fs2_0_PyrLvls2",
+              "LK_Fs2_0", "LK_Fs2_0_PyrLvls2")
+FB_CONFIGS = ("Farneback_Fs0_0", "Farneback_Fs0_0_PyrLvls2", "LiuSE_Farneback_Fs0_0_PyrLvls2",
+              "FB_Fs0_0", "FB_Fs0_0_PyrLvls2")
+
+
+def expected_kernels(name: str) -> set:
+    """The kernels a configuration's path launches, and no others.  The LK
+    and FB configurations run with warping=False: no warp.  LiuSE_LK_Fs2_0_*
+    and LiuSE_FB_Fs0_0_* run Liu-Shen alone (the harness quirk of
+    configs.py)."""
+    liu_shen = {"liu_shen"} if name.startswith("LiuSE_") else set()
+    if name in LK_CONFIGS:
+        return {"lk_build", "lk_gn"} | liu_shen
+    if name in FB_CONFIGS:
+        return {"fb_poly_expand", "fb_update_matrices", "fb_blur5_flow"} | liu_shen
+    want = set()
+    if not name.startswith("LiuSE_") or "HSchunck" in name:
+        want.add("hs_jacobi")
+    if name.startswith("LiuSE_"):
+        want.add("liu_shen")
+    if name.endswith("PyrLvls2"):
+        want.add("warp_pair")
+    return want
 
 
 @pytest.fixture
@@ -45,15 +89,33 @@ def _equal(got, want):
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("shape", [(47, 61), (96, 96)], ids=["47x61", "96x96"])
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+# every configuration up to 512^2, and one configuration a solver at 2048^2
+GRAPH_CASES = ([(name, shape) for name in sorted(CONFIGS)
+                for shape in [(47, 61), (96, 96), (512, 512)]]
+               + [(name, (2048, 2048)) for name in ("HS_Fs3_4", "LiuSE_HS_Fs3_4_PyrLvls2",
+                                                    "LK_Fs2_0", "Farneback_Fs0_0")])
+
+
+@pytest.mark.parametrize("name,shape", GRAPH_CASES,
+                         ids=[f"{n}-{s[0]}x{s[1]}" for n, s in GRAPH_CASES])
 def test_graph_replay_equals_eager(name, shape, dev):
+    """The capture (after the eager warm-up) launches exactly the
+    configuration's kernels; the replays launch none and equal the eager
+    run bit for bit."""
     im1, im2 = _pair(shape, 3, dev)
     fn = compiled_pipeline(name)
     try:
-        got = fn(im1, im2)
+        fn.warm_up(im1, im2)
+        before = launches()
+        got = fn(im1, im2)  # the capture, then the first replay
+        captured = {k for k, n in launches().items() if n > before[k]}
+        assert captured == expected_kernels(name)
+        after = launches()
+        again = fn(im1, im2)
+        assert launches() == after
         assert got[0].device == dev and got[0].shape == shape
-        assert _equal(got, run_config(name, im1, im2))
+        want = run_config(name, im1, im2)
+        assert _equal(got, want) and _equal(again, want)
     finally:
         fn.release()
 

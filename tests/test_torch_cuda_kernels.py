@@ -10,10 +10,13 @@ Built with -fmad=false, every kernel's flow equals its plain version's bit
 for bit; the Liu-Shen error, reduced in another order, agrees to 1e-5
 relative, and the Liu-Shen stop comes at the same iteration, also when it
 falls inside one of the kernel's launches of T steps.  The HS kernel
-is held at every niter mod T (its iterations per launch) and at several T.
+is held at every niter mod T (its iterations per launch) and at several T,
+and K1 and K4/K5 under every per-side ``edges`` mask and at the tiles and
+stripes the sharded solves give them at 2048^2.
 The LK build equals its plain version bit for bit, with the symmetric, the
 asymmetric and a four-run window; so do the GN loop (px, py and status, on
-inputs whose pixels stop at every step from 0 to 5) and the fused build+GN
+inputs whose pixels stop at every step from 0 to 5, and on the arguments
+``run_config("LK_Fs2_0")`` gives it) and the fused build+GN
 (clusters of 8 and of 16, the three windows, a partial last tile).  The four Farneback kernels
 (the polynomial expansion, updateMatrices, window blur + solve, the fused
 loop) equal their plain versions bit for bit; the expansion from 2x2 to
@@ -21,27 +24,43 @@ loop) equal their plain versions bit for bit; the expansion from 2x2 to
 neighbour's rows, and the FB configurations' replayed flows equal those of
 the plain expansion; the fused loop from 2x2 to 2048^2, at 0 to 5 rounds,
 1 to 129 taps and with the exact gather.
+
+Every configuration, the README's wrapper call, the fused LK solve
+(``lk_dense_solve(impl="fused")``) and the fused Farneback loop on the
+level-0 expansions run on the card at 96^2 and 512^2 within AEE 5e-6 of the
+port's plain path on the CPU, launching their kernels; the fused Farneback
+loop equals ``farneback_solve`` on the card bit for bit, and the 96^2
+HS, HS + Liu-Shen, LK and Farneback flows match the golden flows of
+tests/golden/ at tests/test_golden.py's bars.
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import opticalflow_ri_tpu_torch as port
 from opticalflow_ri_tpu_torch.configs import run_config
-from opticalflow_ri_tpu_torch.models.farneback import _window_blur_spec, poly_expansion
+from opticalflow_ri_tpu_torch.models.farneback import (
+    _level_plan, _window_blur_spec, farneback_solve, gaussian_blur, poly_expansion,
+)
 from opticalflow_ri_tpu_torch.models.liu_shen import liu_shen_precompute
-from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_kernel_inputs
+from opticalflow_ri_tpu_torch.models.lucas_kanade import lk_dense_solve, lk_kernel_inputs
 from opticalflow_ri_tpu_torch.ops.cuda import (
     blur5_flow, build, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, poly_expand,
     tent_sample, warp_tent,
 )
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.ops.stencil import hs_derivatives
+from opticalflow_ri_tpu_torch.parallel.sharded_kernel import ls_shard_kernel_supported
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
+from test_torch_kernel_plans import load_kernel_times
 
 pytestmark = pytest.mark.cuda
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "synthetic96_flows.npz")
 
 
 def aee(u, v, u_ref, v_ref):
@@ -60,9 +79,10 @@ def _rand(rng, shape, lo, hi, dev):
 
 
 T = hs_iter.STEPS_PER_LAUNCH
-HS_NITERS = [0, 1, T - 1, T, T + 1, 45, 600]
-HS_CASES = ([(shape, n) for shape in [(2, 2), (3, 517), (47, 61), (333, 517), (512, 512)]
-             for n in HS_NITERS] + [((2048, 2048), n) for n in (0, 1, T + 1)])
+HS_NITERS = [0, 1, T - 1, T, T + 1, 45, 100, 600]
+HS_CASES = [(shape, n) for shape in [(2, 2), (3, 517), (47, 61), (333, 517), (512, 512),
+                                     (2048, 2048)]
+            for n in HS_NITERS]
 
 
 def _hs_inputs(dev, shape, seed=0):
@@ -73,8 +93,8 @@ def _hs_inputs(dev, shape, seed=0):
 
 @pytest.mark.parametrize("shape,niter", HS_CASES, ids=[f"{s[0]}x{s[1]}-{n}" for s, n in HS_CASES])
 def test_hs_kernel_equals_plain(dev, shape, niter):
-    """Every niter mod T (the launches' block depth), 600 as the PyHSchunck
-    configs run it, and shapes smaller than the halo."""
+    """Every niter mod T (the launches' block depth), 100 and 600 as the HS
+    and PyHSchunck configs run them, and shapes smaller than the halo."""
     fx, fy, ft, u0, v0 = _hs_inputs(dev, shape)
     before = hs_iter.hs_iterate.launches
     got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter)
@@ -97,7 +117,7 @@ def test_hs_kernel_block_depths_equal_plain(dev, steps, shape, monkeypatch):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("shape", [(2, 3), (47, 61), (333, 517)])
+@pytest.mark.parametrize("shape", [(2, 3), (47, 61), (333, 517), (512, 512)])
 @pytest.mark.parametrize("dmax", [4.0, 20.0])
 def test_warp_kernel_equals_plain(dev, shape, dmax):
     rng = np.random.default_rng(1)
@@ -189,15 +209,26 @@ def test_wrappers_reject_bad_tensors(dev):
 
 
 EDGES = list(range(16))  # every mask of TOP | BOTTOM | LEFT | RIGHT
+_TOP, _BOT, _LEFT, _RIGHT = hs_iter.TOP, hs_iter.BOTTOM, hs_iter.LEFT, hs_iter.RIGHT
+# every mask at 47x61 and 333x517; then the sharded solves' own calls at
+# 2048^2: the (1, 2, 2) mesh's 1024^2 tiles and the (2, 1, 2) mesh's
+# 2048 x 1024 ones, each with a T-deep apron on its interior sides, and the
+# whole image with every side an apron edge
+HS_MASKED = ([(shape, edges) for shape in [(47, 61), (333, 517)] for edges in EDGES]
+             + [((1024 + T, 1024 + T), e) for e in (_TOP | _LEFT, _TOP | _RIGHT, _BOT | _LEFT,
+                                                     _BOT | _RIGHT)]
+             + [((2048, 1024 + T), e) for e in (_TOP | _BOT | _LEFT, _TOP | _BOT | _RIGHT)]
+             + [((2048, 2048), 0)])
 
 
-@pytest.mark.parametrize("shape", [(47, 61), (333, 517)])
-@pytest.mark.parametrize("edges", EDGES)
+@pytest.mark.parametrize("shape,edges", HS_MASKED,
+                         ids=[f"{s[0]}x{s[1]}-{e}" for s, e in HS_MASKED])
 def test_hs_kernel_masked_equals_plain(dev, shape, edges):
     """The per-side border mask of a sharded tile: the whole array, apron
-    edges included, bit for bit, at 1, T-1 and T iterations."""
+    edges included, bit for bit, at 1, T-1 and T iterations and the last
+    launch of a 100-iteration solve (100 mod T)."""
     fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=5)
-    for niter in (1, T - 1, T):
+    for niter in sorted({1, T - 1, T, 100 % T or T}):
         got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter, edges)
         want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter, edges)
         torch.cuda.synchronize()
@@ -205,13 +236,29 @@ def test_hs_kernel_masked_equals_plain(dev, shape, edges):
             assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("shape", [(47, 61), (333, 517)])
-@pytest.mark.parametrize("edges", EDGES)
+# the rows-sharded solve's block depth on the (1, 4, 1) mesh's 512-row
+# stripes of 2048^2
+T_STRIPE = next(t for t in (16, 8, 4) if ls_shard_kernel_supported(512, 2048, t))
+# every mask at 47x61 and 333x517; then the (1, 4, 1) mesh's stripes at
+# 2048^2 (a T_STRIPE-row apron on each interior side: the top, an inner and
+# the bottom stripe) and the whole image with every side an apron edge
+LS_MASKED = ([(shape, edges) for shape in [(47, 61), (333, 517)] for edges in EDGES]
+             + [((512 + T_STRIPE, 2048), _TOP | _LEFT | _RIGHT),
+                ((512 + 2 * T_STRIPE, 2048), _LEFT | _RIGHT),
+                ((512 + T_STRIPE, 2048), _BOT | _LEFT | _RIGHT), ((2048, 2048), 0)])
+
+
+@pytest.mark.parametrize("shape,edges", LS_MASKED,
+                         ids=[f"{s[0]}x{s[1]}-{e}" for s, e in LS_MASKED])
 def test_ls_kernel_masked_equals_plain(dev, shape, edges):
     """The mask with the stop (tol 0: 1 and T steps) and without it
-    (2T + 1 steps, err NaN, k = max_iter)."""
+    (2T + 1 steps, err NaN, k = max_iter); at 2048^2 also the sharded
+    solve's calls without the stop: T_STRIPE - 1 steps then 1, and 60."""
     fields, u0, v0 = _ls_inputs(np.random.default_rng(6), shape, dev)
-    for n, stop in ((1, True), (T_LS, True), (2 * T_LS + 1, False)):
+    runs = [(1, True), (T_LS, True), (2 * T_LS + 1, False)]
+    if shape[1] == 2048:
+        runs += [(T_STRIPE - 1, False), (1, False), (60, False)]
+    for n, stop in runs:
         got = liu_shen_iter.liu_shen_iterate(10.0, fields, u0, v0, n, 0.0, edges, stop)
         want = liu_shen_iter.liu_shen_iterate_plain(10.0, fields, u0, v0, n, 0.0, edges, stop)
         torch.cuda.synchronize()
@@ -220,29 +267,101 @@ def test_ls_kernel_masked_equals_plain(dev, shape, edges):
         assert bool(torch.isnan(got[2])) == (not stop)
 
 
-@pytest.mark.parametrize("name", ["HS_Fs3_4", "HS_Fs3_4_PyrLvls2", "PyHSchunck_Fs3_4_PyrLvls2"])
-def test_pipeline_on_card_matches_cpu(dev, name):
-    im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
+# ---------------------------------------------------------------- the main path
+
+def _wrapper(a, b, device):
+    """The README's wrapper call: HS alpha 21, 600 iterations, sigma 3.4."""
+    return port.GenericPyramidalOpticalFlowWrapper(
+        port.HSOpticalFlowAlgoAdapter([21.0], 600), filter_sigma=3.4,
+        device=device).calculateFlow(a, b)
+
+
+def _lk_fused_solve(a, b, device):
+    """The fused LK kernel's entry: one calibrated LK solve from zero flow."""
+    a, b = (torch.as_tensor(x, device=device) for x in (a, b))
+    z = torch.zeros(a.shape, device=device)
+    return lk_dense_solve(a, b, z, z, impl="fused")[:2]
+
+
+def _fb_fused_solve(a, b, device):
+    """The fused Farneback kernel's entry: the calibrated rounds (window 33
+    Gaussian, 5 rounds, polyN 7, polySigma 1.5) from zero flow on the
+    level-0 expansions, i.e. ``farneback_solve`` at one level."""
+    a, b = (torch.as_tensor(x, device=device) for x in (a, b))
+    lvl = _level_plan(a.shape[0], a.shape[1], 0.5, 0)[0]
+    r0, r1 = (poly_expansion(gaussian_blur(im, lvl["smooth"], lvl["sigma"]), 7, 1.5)
+              .contiguous() for im in (a, b))
+    z = torch.zeros(a.shape, device=device)
+    taps, mode, scale = WINDOWS["gaussian"]
+    return fb_fused.fb_fused(r0, r1, z, z, 5, taps, mode, scale)
+
+
+# the entries the pipeline tests run beside the configurations: the wrapper,
+# the fused kernels' solves, and the four two-level pyramids of the golden
+# flows (tests/test_golden.py), run at 96^2 only
+ENTRIES = {
+    "wrapper": _wrapper,
+    "lk_dense_solve_fused": _lk_fused_solve,
+    "fb_fused_solve": _fb_fused_solve,
+    "golden_hs": lambda a, b, device: port.generic_pyramidal_optical_flow(
+        a, b, 3.4, port.HSOpticalFlowAlgoAdapter([21.0, 45.0], 100), 2, 1, device=device),
+    "golden_hs_ls": lambda a, b, device: port.generic_pyramidal_optical_flow(
+        a, b, 3.4, port.HSOpticalFlowAlgoAdapter([21.0, 45.0], 60), 2, 1, FILTER_OPT=0.48,
+        optionalOFlowAlgoAdapter=port.LiuShenOpticalFlowAlgoAdapter(5), device=device),
+    "golden_lk": lambda a, b, device: port.generic_pyramidal_optical_flow(
+        a, b, 2.0, port.DenseLucasKanadeAdapter(), 2, 1, FILTER_OPT=0.48, warping=False,
+        device=device),
+    "golden_fb": lambda a, b, device: port.generic_pyramidal_optical_flow(
+        a, b, 0.0, port.FarnebackAdapter(), 2, 1, device=device),
+}
+
+
+def _cases(names):
+    """(name, size): every name at 96^2, all but the golden ones at 512^2."""
+    cases = [(n, 96) for n in names] + [(n, 512) for n in names if not n.startswith("golden")]
+    return pytest.mark.parametrize("name,size", cases, ids=[f"{n}-{s}" for n, s in cases])
+
+
+def _card_against_cpu(dev, name, size):
+    """The card's flows of ``name`` on the particle pair of size^2, held
+    within AEE 5e-6 of the CPU plain path's; at 96^2 a golden entry's also
+    against its golden flows, at tests/test_golden.py's bars."""
+    im1, im2, _, _ = particle_image_pair(shape=(size, size), seed=3, max_disp=2.5)
+    run = ENTRIES.get(name) or (lambda a, b, device: run_config(name, a, b, device=device))
+    gu, gv = (t.cpu().numpy() for t in run(im1, im2, dev))
+    cu, cv = (t.numpy() for t in run(im1, im2, "cpu"))
+    assert gu.shape == (size, size) and gu.dtype == np.float32
+    assert np.isfinite(gu).all() and np.isfinite(gv).all()
+    assert aee(gu, gv, cu, cv) <= 5e-6
+    if name.startswith("golden"):
+        key = name[len("golden_"):]
+        want_u, want_v = (np.load(GOLDEN)[f"{key}_{c}"] for c in "uv")
+        if key == "lk":  # the bulk check: early exits amplify noise on lone pixels
+            assert ((np.abs(gu - want_u) < 1e-2) & (np.abs(gv - want_v) < 1e-2)).mean() > 0.99
+        else:
+            assert aee(gu, gv, want_u, want_v) < (2e-3 if key == "fb" else 1e-3)
+    return gu, gv
+
+
+@_cases(["HS_Fs0_0", "HS_Fs3_4", "PyHSchunck_Fs3_4", "HS_Fs3_4_PyrLvls2",
+         "PyHSchunck_Fs3_4_PyrLvls2", "wrapper", "golden_hs"])
+def test_pipeline_on_card_matches_cpu(dev, name, size):
     hs_before, warp_before = hs_iter.hs_iterate.launches, warp_tent.warp_pair.launches
-    gu, gv = run_config(name, im1, im2, device=dev)
-    cu, cv = run_config(name, im1, im2, device="cpu")
+    _card_against_cpu(dev, name, size)
     assert hs_iter.hs_iterate.launches > hs_before
-    assert (warp_tent.warp_pair.launches > warp_before) == name.endswith("PyrLvls2")
-    assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+    two_levels = name.endswith("PyrLvls2") or name == "golden_hs"
+    assert (warp_tent.warp_pair.launches > warp_before) == two_levels
 
 
-@pytest.mark.parametrize("name", ["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2",
-                                  "LiuSE_LK_Fs2_0_PyrLvls2", "LiuSE_FB_Fs0_0_PyrLvls2"])
-def test_liu_shen_pipeline_on_card_matches_cpu(dev, name):
-    im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
+@_cases(["LiuSE_HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", "LiuSE_LK_Fs2_0_PyrLvls2",
+         "LiuSE_FB_Fs0_0_PyrLvls2", "golden_hs_ls"])
+def test_liu_shen_pipeline_on_card_matches_cpu(dev, name, size):
     ls_before, warp_before = liu_shen_iter.liu_shen_iterate.launches, warp_tent.warp_pair.launches
     hs_before = hs_iter.hs_iterate.launches
-    gu, gv = run_config(name, im1, im2, device=dev)
-    cu, cv = run_config(name, im1, im2, device="cpu")
+    _card_against_cpu(dev, name, size)
     assert liu_shen_iter.liu_shen_iterate.launches > ls_before
     assert warp_tent.warp_pair.launches > warp_before
-    assert (hs_iter.hs_iterate.launches > hs_before) == ("PyHSchunck" in name)
-    assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+    assert (hs_iter.hs_iterate.launches > hs_before) == ("PyHSchunck" in name or "golden" in name)
 
 
 # ---------------------------------------------------------------- dense LK
@@ -271,7 +390,7 @@ FOUR_RUNS_X = ((0, 26), (27, 27), (28, 29), (30, 31))
 LK_BUILD_WINDOWS = ASYMS + ["four_runs"]
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517), (512, 512)])
+@pytest.mark.parametrize("shape", [(2, 2), (47, 61), (333, 517), (512, 512), (2048, 2048)])
 @pytest.mark.parametrize("window", LK_BUILD_WINDOWS, ids=str)
 def test_lk_build_kernel_equals_plain(dev, shape, window):
     asym = window if window != "four_runs" else (0, 0, 0, 0)
@@ -297,9 +416,15 @@ def _lk_check(got, want):
 def _lk_gn_input(dev, shape, case):
     """(t1, t2, fields) of the GN kernel: the rolled pair's planes with a
     calibrated or a wild random flow; the particle pair from zero flow (the
-    configs' smooth input); or 'stops': a flat band (singular windows), some
-    origins beyond the bail bounds, the rest |d| <= 4, so that pixels end
-    their loop at every step from 0 to 5."""
+    configs' smooth input); 'configs': what ``lk_gn_iterate`` receives in
+    one ``run_config("LK_Fs2_0")`` on the particle pair; or 'stops': a flat
+    band (singular windows), some origins beyond the bail bounds, the rest
+    |d| <= 4, so that pixels end their loop at every step from 0 to 5."""
+    if case == "configs":
+        im1, im2, _, _ = particle_image_pair(shape=shape, seed=0)
+        return load_kernel_times().capture_lk_args(
+            run_config, lk_build, lk_iter, "LK_Fs2_0", torch.tensor(im1, device=dev),
+            torch.tensor(im2, device=dev))[1][:10]
     if case == "smooth":
         im1, im2, _, _ = particle_image_pair(shape=shape, seed=0)
         z = torch.zeros(shape, device=dev)
@@ -339,11 +464,15 @@ def test_lk_gn_kernel_equals_plain(dev, shape, n_iter, dmax):
     _lk_check(got, want)
 
 
-@pytest.mark.parametrize("shape", [(47, 61), (333, 517), (512, 512)])
-@pytest.mark.parametrize("case", ["calibrated", "wild", "smooth", "stops"])
+@pytest.mark.parametrize("shape", [(47, 61), (333, 517), (512, 512), (2048, 2048)])
+@pytest.mark.parametrize("case", ["calibrated", "wild", "smooth", "configs", "stops"])
 def test_lk_gn_kernel_exits_equal_plain(dev, shape, case):
-    """The per-pixel exit, n_iter 0, 1, 5."""
+    """The per-pixel exit, n_iter 0, 1, 5; on the 'stops' input pixels end
+    their loop at every step from 0 to 5 (``gn_exit``'s count)."""
     args = _lk_gn_input(dev, shape, case)
+    if case == "stops":
+        steps = load_kernel_times().gn_exit(lk_iter, *args, 5, 5, 13)[3]
+        assert bool((torch.bincount(steps.flatten(), minlength=6) > 0).all())
     for n_iter in (0, 1, 5):
         got = lk_iter.lk_gn_iterate(*args, n_iter, 5, 13)
         want = lk_iter.lk_gn_iterate_plain(*args, n_iter, 5, 13)
@@ -374,17 +503,27 @@ def test_lk_fused_kernel_equals_plain(dev, shape, n_iter, asym, R):
     _lk_check(got, want)
 
 
-@pytest.mark.parametrize("shape,R", [((2048, 2048), 5), ((333, 517), 6), ((333, 517), 7)],
-                         ids=["2048-R5", "333x517-R6", "333x517-R7"])
-def test_lk_fused_kernel_large_and_clusters_equal_plain(dev, shape, R):
-    """2048^2, and clusters of 16 blocks (R = 6 and 7 need them)."""
+LARGE_FUSED = [((2048, 2048), 5, (0, 0, 0, 0), 4.0), ((333, 517), 6, (0, 0, 0, 0), 4.0),
+               ((333, 517), 7, (0, 0, 0, 0), 4.0), ((2048, 2048), 5, (1, 0, 0, 1), 20.0),
+               ((2048, 2048), 5, "four_runs", 20.0), ((512, 512), 6, (0, 0, 0, 0), 20.0)]
+
+
+@pytest.mark.parametrize("shape,R,asym,dmax", LARGE_FUSED,
+                         ids=["2048-R5", "333x517-R6", "333x517-R7", "2048-R5-asym",
+                              "2048-R5-four_runs", "512-R6"])
+def test_lk_fused_kernel_large_and_clusters_equal_plain(dev, shape, R, asym, dmax):
+    """2048^2 with the three windows, and clusters of 16 blocks (R = 6 and 7
+    need them)."""
     rng = np.random.default_rng(5)
     a = rng.uniform(0, 255, shape).astype(np.float32)
     b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, shape).astype(np.float32)
-    u0, v0 = (torch.tensor(rng.uniform(-4, 4, shape).astype(np.float32), device=dev)
+    u0, v0 = (torch.tensor(rng.uniform(-dmax, dmax, shape).astype(np.float32), device=dev)
               for _ in range(2))
     slab, g_pair, fields, runs_y, runs_x = lk_kernel_inputs(
-        torch.tensor(a, device=dev), torch.tensor(b, device=dev), u0, v0, max_shift=R)
+        torch.tensor(a, device=dev), torch.tensor(b, device=dev), u0, v0,
+        asym=asym if asym != "four_runs" else (0, 0, 0, 0), max_shift=R)
+    if asym == "four_runs":
+        runs_y, runs_x = FOUR_RUNS_Y, FOUR_RUNS_X
     assert lk_iter.fused_plan(R)[0] == (8 if R <= 5 else 16)
     got = lk_iter.lk_fused(slab, g_pair, *fields, 5, R, 13, runs_y, runs_x)
     want = lk_iter.lk_fused_plain(slab, g_pair, *fields, 5, R, 13, runs_y, runs_x)
@@ -430,17 +569,15 @@ def test_lk_wrappers_reject_bad_tensors(dev):
         lk_iter.lk_fused(slab, g_pair, *fields[:-1], fields[-1].cpu(), 5, 5, 13, runs_y, runs_x)
 
 
-@pytest.mark.parametrize("name", LK_NAMES)
-def test_lk_pipeline_on_card_matches_cpu(dev, name):
-    im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
-    counters = (lk_build.lk_build_planes, lk_iter.lk_gn_iterate, warp_tent.warp_pair,
-                liu_shen_iter.liu_shen_iterate)
+@_cases(LK_NAMES + ["lk_dense_solve_fused", "golden_lk"])
+def test_lk_pipeline_on_card_matches_cpu(dev, name, size):
+    counters = (lk_build.lk_build_planes, lk_iter.lk_gn_iterate, lk_iter.lk_fused,
+                warp_tent.warp_pair, liu_shen_iter.liu_shen_iterate)
     before = [c.launches for c in counters]
-    gu, gv = run_config(name, im1, im2, device=dev)
-    cu, cv = run_config(name, im1, im2, device="cpu")
+    _card_against_cpu(dev, name, size)
     launched = [c.launches > b for c, b in zip(counters, before)]
-    assert launched == [True, True, False, name.startswith("LiuSE_")]
-    assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+    fused = name == "lk_dense_solve_fused"
+    assert launched == [not fused, not fused, fused, False, name.startswith("LiuSE_")]
 
 
 # ---------------------------------------------------------------- Farneback
@@ -465,7 +602,7 @@ def _fb_flow(dev, shape, dmax, seed=6):
     return _rand(rng, shape, -dmax, dmax, dev), _rand(rng, shape, -dmax, dmax, dev)
 
 
-POLY_SHAPES = [(2, 2), (5, 7), (47, 61), (333, 517), (2048, 2048)]
+POLY_SHAPES = [(2, 2), (5, 7), (47, 61), (333, 517), (512, 512), (1024, 1024), (2048, 2048)]
 
 
 def _poly_source(dev, shape, n, form, seed=7):
@@ -536,7 +673,7 @@ def test_poly_expand_rejects_bad_tensors(dev):
         poly_expand.poly_expand(srcp[:14], 7, 1.5)
 
 
-@pytest.mark.parametrize("shape", FB_SHAPES)
+@pytest.mark.parametrize("shape", FB_SHAPES + [(512, 512), (2048, 2048)])
 @pytest.mark.parametrize("dmax", [4.0, 20.0], ids=["calibrated", "wild"])
 @pytest.mark.parametrize("R", [5, None], ids=["R5", "gather"])
 def test_update_matrices_kernel_equals_plain(dev, shape, dmax, R):
@@ -580,13 +717,13 @@ def test_blur5_flow_kernel_equals_plain(dev, shape, window, n):
         assert torch.equal(g, w)
 
 
-FUSED_SHAPES = FB_SHAPES + [(512, 512), (2048, 2048)]
+FUSED_SHAPES = FB_SHAPES + [(3, 517), (512, 512), (2048, 2048)]
 # (shape, window, taps, n_iters, sample_max_shift): every round count at the
 # calibrated 33 taps, the tap counts the tile blur treats apart at 2 rounds,
 # and the exact gather (R = None)
 FUSED_CASES = ([(s, win, 33, it, 5) for s in FUSED_SHAPES for win in BLUR_WINDOWS
-                for it in (0, 1, 5)]
-               + [(s, win, n, 2, 5) for s in [(47, 61), (512, 512)] for win in BLUR_WINDOWS
+                for it in (0, 1, 2, 5)]
+               + [(s, win, n, 2, 5) for s in FUSED_SHAPES for win in BLUR_WINDOWS
                   for n in (1, 3, 129)]
                + [(s, "gaussian", 33, it, None) for s in FUSED_SHAPES for it in (1, 5)])
 
@@ -634,17 +771,24 @@ def test_fb_wrappers_reject_bad_tensors(dev):
         fb_fused.fb_fused(r0, r1, fx, fy, -1, taps, mode)
 
 
-@pytest.mark.parametrize("name", FB_NAMES)
-def test_fb_pipeline_on_card_matches_cpu(dev, name):
-    im1, im2, _, _ = particle_image_pair(shape=(96, 96), seed=3, max_disp=2.5)
+@_cases(FB_NAMES + ["fb_fused_solve", "golden_fb"])
+def test_fb_pipeline_on_card_matches_cpu(dev, name, size):
+    """The fused loop's entry also equals ``farneback_solve`` on the card
+    bit for bit (the same rounds)."""
     counters = (poly_expand.poly_expand, tent_sample.update_matrices, blur5_flow.blur5_flow,
                 warp_tent.warp_pair, liu_shen_iter.liu_shen_iterate, fb_fused.fb_fused)
     before = [c.launches for c in counters]
-    gu, gv = run_config(name, im1, im2, device=dev)
-    cu, cv = run_config(name, im1, im2, device="cpu")
+    gu, gv = _card_against_cpu(dev, name, size)
     launched = [c.launches > b for c, b in zip(counters, before)]
-    assert launched == [True, True, True, False, name.startswith("LiuSE_"), False]
-    assert aee(gu.cpu().numpy(), gv.cpu().numpy(), cu.numpy(), cv.numpy()) <= 5e-6
+    fused = name == "fb_fused_solve"
+    assert launched == [True, not fused, not fused, False, name.startswith("LiuSE_"), fused]
+    if fused:
+        im1, im2 = (torch.as_tensor(im, device=dev)
+                    for im in particle_image_pair(shape=(size, size), seed=3, max_disp=2.5)[:2])
+        z = torch.zeros((size, size), device=dev)
+        want = farneback_solve(im1, im2, z, z)
+        assert np.array_equal(gu, want[0].cpu().numpy())
+        assert np.array_equal(gv, want[1].cpu().numpy())
 
 
 @pytest.mark.parametrize("name", FB_NAMES)

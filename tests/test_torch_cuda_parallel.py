@@ -11,24 +11,29 @@ paths run the single-device kernels on the whole image in T-iteration
 launches: their u, v equal the single-device port's bit for bit, and err
 agrees to 1e-6 relative; the rows-sharded LK and Farneback equal
 ``lk_dense_solve`` and ``farneback_solve`` bit for bit.  The sharded modes
-of K7 (global rows), K9 (stripe mode with each apron) and K12 (the four y
-masks) equal their plain versions on stripes bit for bit.  K3's
+of K6 (a stripe's slab), K7 (global rows), K9 (stripe mode with each apron)
+and K12 (the four y masks) equal their plain versions on stripes bit for
+bit, the four ranks' 512-row stripes of 2048^2 included.  K3's
 caller-padded mode equals its plain version and the whole-image kernel
 cropped, bit for bit; route 2 of every configuration on one rank is held
 to ``run_config`` (AEE <= 5e-6), through ``auto_sharded_pipeline``, which
-replays it as a CUDA graph.  The sharded graph replays equal
-``sharded_pipeline_fn`` bit for bit; a gloo group refuses CUDA tiles (in a
-child process, which can make its own process group); the gated K4/K5
-equals its plain version.  (Four ranks on one card, over gloo with the
-halos staged through host memory, are driven by ``chip_smoke.py``'s
-parallel phase.)
+replays it as a CUDA graph.  The sharded graph replays of all 19
+configurations and of the two ``biLinear=False`` pyramids equal
+``sharded_pipeline_fn`` (the eager sharded call) and the single-device
+path bit for bit; a gloo group refuses CUDA tiles (in a child process,
+which can make its own process group); the gated K4/K5 equals its plain
+version.  Four gloo ranks sharing the card, the halos staged through host
+memory: tests/test_torch_cuda_gloo.py.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
-from opticalflow_ri_tpu_torch.configs import run_config
+import opticalflow_ri_tpu_torch as port
+from opticalflow_ri_tpu_torch.configs import CONFIGS, run_config
 from opticalflow_ri_tpu_torch.models import farneback as fb
 from opticalflow_ri_tpu_torch.models import lucas_kanade as lk
 from opticalflow_ri_tpu_torch.models.horn_schunck import hs_solve
@@ -38,8 +43,37 @@ from opticalflow_ri_tpu_torch.ops.cuda import (
 )
 from opticalflow_ri_tpu_torch.ops.padding import pad2d
 from opticalflow_ri_tpu_torch.utils.synthetic import particle_image_pair
+from test_torch_cuda_graph import launches
 
 pytestmark = pytest.mark.cuda
+
+# route 2 at 2048^2: one configuration a solver (HS, HS + Liu-Shen, LK, FB)
+ROUTE2_AT_2048 = ("HS_Fs3_4_PyrLvls2", "LiuSE_PyHSchunck_Fs3_4_PyrLvls2", "LK_Fs2_0_PyrLvls2",
+                  "FB_Fs0_0_PyrLvls2")
+# the two-level biLinear=False pyramids: (pre-filter sigma, the port's adapter
+# class, its arguments; the HS adapter's own defaults would set biLinear=True,
+# so they are off), and the one kernel each launches
+LS_WARP_PYRAMIDS = {"hs": (3.4, "HSOpticalFlowAlgoAdapter", ([21.0, 45.0], 100, False)),
+                    "ls": (0.0, "LiuShenOpticalFlowAlgoAdapter", (0.1,))}
+LS_WARP_KERNELS = {"hs": "hs_jacobi", "ls": "liu_shen"}
+
+
+def ls_warp_pyramid(name: str, mesh):
+    """``run(im1, im2, device="cuda") -> (U, V)``: the two-level
+    ``biLinear=False`` pyramid ``name`` of ``LS_WARP_PYRAMIDS`` with a fresh
+    adapter, on this rank's tiles under ``kernel_sharded_solvers(mesh)``, or
+    the single-device driver where ``mesh`` is None."""
+    from opticalflow_ri_tpu_torch.parallel import kernel_sharded_solvers
+
+    sigma, cls, args = LS_WARP_PYRAMIDS[name]
+
+    def run(im1, im2, device="cuda"):
+        with contextlib.nullcontext() if mesh is None else kernel_sharded_solvers(mesh):
+            return port.generic_pyramidal_optical_flow(
+                im1, im2, sigma, getattr(port, cls)(*args), pyramidalLevels=2, biLinear=False,
+                device=device)
+
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -146,15 +180,20 @@ def test_farneback_solve_sharded_on_one_nccl_rank(nccl_mesh, pair, use_gaussian)
 
 # (row0, rows) of the stripes of a 3 x 111-row image: top, interior, bottom
 STRIPES = [(0, 111), (111, 111), (222, 111)]
+# ((H, W), row0, rows): those, and the (1, 4, 1) ranks' 512-row stripes of 2048^2
+LK_STRIPES = ([((333, 173), *s) for s in STRIPES]
+              + [((2048, 2048), row0, 512) for row0 in (0, 512, 1024, 1536)])
 
 
-@pytest.mark.parametrize("row0,rows", STRIPES, ids=["top", "interior", "bottom"])
-def test_lk_gn_global_rows_equal_plain(row0, rows):
-    """K7 in global rows on an LK stripe (slab and fields from the image
-    padded as the exchange pads it), some origins past the image's bottom."""
+@pytest.mark.parametrize("img,row0,rows", LK_STRIPES,
+                         ids=["top", "interior", "bottom"] + [f"2048-row{r}" for r in
+                                                             (0, 512, 1024, 1536)])
+def test_lk_gn_global_rows_equal_plain(img, row0, rows):
+    """K6 on an LK stripe's slab and K7 in global rows (slab and fields from
+    the image padded as the exchange pads it), some origins past the image's
+    bottom."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    img = (3 * rows, 173)
     rng = np.random.default_rng(row0)
     a = rng.uniform(0, 255, img).astype(np.float32)
     b = np.roll(a, (1, 2), axis=(0, 1)) + rng.normal(0, 2, img).astype(np.float32)
@@ -167,6 +206,9 @@ def test_lk_gn_global_rows_equal_plain(row0, rows):
     slab, g_pair, fields, runs_y, runs_x = lk.lk_kernel_inputs_padded(ap, bp, *flows, 13,
                                                                       (0, 0, 0, 0), 5, row0)
     t = lk_build.lk_build_planes(slab, g_pair, 13, 5, runs_y, runs_x)
+    want_t = lk_build.lk_build_planes_plain(slab, g_pair, 13, 5, runs_y, runs_x)
+    assert all(torch.equal(g, w) for g, w in zip(t, want_t))
+    del want_t
     for n in (0, 1, 5):
         got = lk_iter.lk_gn_iterate(*t, *fields, n, 5, 13, row0=row0, img_h=img[0], img_w=img[1])
         want = lk_iter.lk_gn_iterate_plain(*t, *fields, n, 5, 13, row0=row0, img_h=img[0],
@@ -174,14 +216,18 @@ def test_lk_gn_global_rows_equal_plain(row0, rows):
         assert all(torch.equal(g, w) for g, w in zip(got, want)), n
 
 
-@pytest.mark.parametrize("row0,rows", STRIPES + [(0, 333)],
-                         ids=["top", "interior", "bottom", "whole"])
-def test_update_matrices_stripe_and_blur_masks_equal_plain(row0, rows):
+FB_STRIPES = LK_STRIPES[:3] + [((333, 173), 0, 333)] + LK_STRIPES[3:]
+
+
+@pytest.mark.parametrize("img,row0,rows", FB_STRIPES,
+                         ids=["top", "interior", "bottom", "whole"] + [f"2048-row{r}" for r in
+                                                                      (0, 512, 1024, 1536)])
+def test_update_matrices_stripe_and_blur_masks_equal_plain(img, row0, rows):
     """K9 in stripe mode (R-row aprons on the interior sides) and K12 under
     the stripe's y mask, both windows, against their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    img_h, w, R = 333, 173, 5
+    (img_h, w), R = img, 5
     im1, im2, _, _ = particle_image_pair(shape=(img_h, w), seed=3)
     r0, r1 = (fb.poly_expansion(torch.tensor(im, device="cuda"), 7, 1.5).contiguous()
               for im in (im1, im2))
@@ -212,8 +258,21 @@ def test_update_matrices_stripe_and_blur_masks_equal_plain(row0, rows):
 # the sharded pyramid: K3's caller-padded mode and route 2
 # ---------------------------------------------------------------------------
 
+# the (start, end) rows and columns of a tile whose sides are all interior;
+# None: as the (1, 2, 2) ranks cut 512^2 and 2048^2, in halves
+PADDED_CUTS = {(47, 61): ((11, 38), (15, 49)), (333, 517): ((101, 256), (130, 317)),
+               (512, 512): (None, None), (2048, 2048): (None, None)}
+
+
+def _span(n, lo_border, hi_border, cut):
+    if cut is None:  # a rank's half, or with both sides interior the middle half
+        cut = (n // 4, 3 * n // 4) if not (lo_border or hi_border) else (n // 2, n // 2)
+    return (0 if lo_border else cut[0]), (n if hi_border else cut[1])
+
+
+@pytest.mark.parametrize("shape", list(PADDED_CUTS), ids=[f"{h}x{w}" for h, w in PADDED_CUTS])
 @pytest.mark.parametrize("dmax", [4.0, 12.0], ids=["calibrated", "wild"])
-def test_warp_padded_mode_equals_whole_image_cropped(dmax):
+def test_warp_padded_mode_equals_whole_image_cropped(dmax, shape):
     """K3 in its caller-padded mode (an 8-cell "nearest" apron) against its
     plain version and against the whole-image kernel cropped to the tile,
     bit for bit, under all 16 combinations of border and interior sides."""
@@ -223,7 +282,8 @@ def test_warp_padded_mode_equals_whole_image_cropped(dmax):
 
     from opticalflow_ri_tpu_torch.ops.cuda import warp_tent
 
-    h, w, a = 333, 517, 8
+    (h, w), a = shape, 8
+    rows, cols = PADDED_CUTS[shape]
     rng = np.random.default_rng(int(dmax))
     ims = [torch.tensor(rng.uniform(0, 255, (h, w)).astype(np.float32), device="cuda")
            for _ in range(2)]
@@ -232,8 +292,8 @@ def test_warp_padded_mode_equals_whole_image_cropped(dmax):
     whole = warp_tent.warp_pair(*ims, *flows)
     padded = [pad2d(im, a, "nearest") for im in ims]
     for top, bottom, left, right in itertools.product((True, False), repeat=4):
-        r0, r1 = (0 if top else 101), (h if bottom else h - 77)
-        c0, c1 = (0 if left else 130), (w if right else w - 200)
+        r0, r1 = _span(h, top, bottom, rows)
+        c0, c1 = _span(w, left, right, cols)
         tiles = [p[r0:r1 + 2 * a, c0:c1 + 2 * a].contiguous() for p in padded]
         cut = [f[r0:r1, c0:c1].contiguous() for f in flows]
         tile = dict(apron=a, row0=r0, col0=c0, img_h=h, img_w=w)
@@ -276,28 +336,64 @@ def test_farneback_two_levels_on_one_nccl_rank(nccl_mesh, pair):
 # the sharded pipeline as one CUDA graph per tile shape
 # ---------------------------------------------------------------------------
 
-GRAPHED = ("HS_Fs3_4", "HS_Fs0_0", "PyHSchunck_Fs3_4", "HS_Fs3_4_PyrLvls2",
-           "LiuSE_HS_Fs3_4_PyrLvls2", "LK_Fs2_0_PyrLvls2", "Farneback_Fs0_0_PyrLvls2")
+# every configuration (routes 1 and 2) at 256 x 384, and HS_Fs3_4 with
+# route 2's 2048^2 set
+GRAPHED = ([(name, (256, 384)) for name in sorted(CONFIGS)]
+           + [(name, (2048, 2048)) for name in ("HS_Fs3_4", *ROUTE2_AT_2048)])
 
 
-@pytest.mark.parametrize("name", GRAPHED)
-def test_sharded_replay_equals_eager_on_one_nccl_rank(nccl_mesh, name):
+@pytest.mark.parametrize("name,shape", GRAPHED,
+                         ids=[f"{n}-{s[0]}x{s[1]}" for n, s in GRAPHED])
+def test_sharded_replay_equals_eager_on_one_nccl_rank(nccl_mesh, name, shape):
     """``auto_sharded_pipeline`` replays one graph per tile shape, bit for
-    bit ``sharded_pipeline_fn`` on two pairs; the second pair launches no
-    kernel from the host.  The capture itself shows that the path reads no
-    tensor on the host: such a read raises while the stream captures."""
+    bit ``sharded_pipeline_fn`` and ``run_config`` on two pairs; the second
+    pair launches no kernel from the host.  The capture itself shows that
+    the path reads no tensor on the host: such a read raises while the
+    stream captures."""
     from opticalflow_ri_tpu_torch.parallel import auto_sharded_pipeline, sharded_pipeline_fn
 
     pairs = [[torch.as_tensor(im, device="cuda")
-              for im in particle_image_pair(shape=(256, 384), seed=s)[:2]] for s in (0, 1)]
+              for im in particle_image_pair(shape=shape, seed=s)[:2]] for s in (0, 1)]
     fn = auto_sharded_pipeline(name, nccl_mesh, _force_sharded=True)
     eager = sharded_pipeline_fn(name, nccl_mesh)
-    assert torch.equal(torch.stack(fn(*pairs[0])), torch.stack(eager(*pairs[0])))
-    before = (hs_iter.hs_iterate.launches, liu_shen_iter.liu_shen_iterate.launches)
-    got = fn(*pairs[1])
-    assert (hs_iter.hs_iterate.launches, liu_shen_iter.liu_shen_iterate.launches) == before
-    assert torch.equal(torch.stack(got), torch.stack(eager(*pairs[1])))
-    fn.release()
+    try:
+        got = torch.stack(fn(*pairs[0]))
+        assert torch.equal(got, torch.stack(eager(*pairs[0])))
+        assert torch.equal(got, torch.stack(run_config(name, *pairs[0])))
+        before = launches()
+        got = fn(*pairs[1])
+        assert launches() == before
+        assert torch.equal(torch.stack(got), torch.stack(eager(*pairs[1])))
+    finally:
+        fn.release()
+
+
+@pytest.mark.parametrize("name", sorted(LS_WARP_PYRAMIDS))
+@pytest.mark.parametrize("size", [512, 2048])
+def test_ls_warp_pyramid_replay_on_one_nccl_rank(nccl_mesh, name, size):
+    """A ``biLinear=False`` pyramid on the rank's tiles as one CUDA graph
+    (``compile.CompiledPipeline``): its capture launches the pyramid's
+    kernel, its replay none, and it equals the eager sharded call and the
+    single-device driver bit for bit."""
+    from opticalflow_ri_tpu_torch.compile import CompiledPipeline
+
+    pair = [torch.as_tensor(im, device="cuda")
+            for im in particle_image_pair(shape=(size, size), seed=0)[:2]]
+    eager = ls_warp_pyramid(name, nccl_mesh)
+    graph = CompiledPipeline(f"biLinear=False {name}, sharded", eager)
+    try:
+        graph.warm_up(*pair)
+        before = launches()
+        got = graph(*pair)
+        assert launches()[LS_WARP_KERNELS[name]] > before[LS_WARP_KERNELS[name]]
+        before = launches()
+        again = graph(*pair)
+        assert launches() == before
+        for want in (eager(*pair), ls_warp_pyramid(name, None)(*pair)):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert all(torch.equal(g, w) for g, w in zip(again, want))
+    finally:
+        graph.release()
 
 
 _GLOO_CHILD = r"""
@@ -344,7 +440,8 @@ def test_gloo_group_refuses_cuda_tiles(tmp_path):
 @pytest.mark.parametrize("stop", [True, False], ids=["stop", "no_stop"])
 @pytest.mark.parametrize("gate", [0, 1])
 @pytest.mark.parametrize("shape,edges", [((47, 61), 15), ((333, 517), 15), ((144, 256), 0),
-                                         ((144, 256), hs_iter.TOP)])
+                                         ((144, 256), hs_iter.TOP), ((2, 2), 15), ((3, 517), 15),
+                                         ((512, 512), 15), ((2048, 2048), 15), ((2048, 2048), 0)])
 def test_liu_shen_gate_equals_plain(shape, edges, gate, stop):
     """K4/K5 with a device gate: bit for bit its plain version (u, v, k;
     err too with the stop), 0 giving (u0, v0, 0, 0)."""

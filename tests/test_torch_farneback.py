@@ -221,7 +221,8 @@ def test_farneback_solve_matches_jax(shape, kw):
 
 def test_fb_fused_is_one_level_of_the_solve():
     """The fused loop from zero flow on the level-0 expansions is
-    ``farneback_solve`` at one level (the entry chip_smoke.py drives)."""
+    ``farneback_solve`` at one level (the entry tests/test_torch_cuda_kernels.py
+    drives on the card)."""
     im1, im2, _, _ = particle_image_pair(shape=(64, 96), seed=4)
     z = torch.zeros((64, 96))
     want = tfb.farneback_solve(_t(im1), _t(im2), z, z)

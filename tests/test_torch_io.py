@@ -13,9 +13,9 @@ from PIL import Image
 from opticalflow_ri_tpu.utils import io as jio
 from opticalflow_ri_tpu.utils import native as jnative
 
-import chip_smoke
 from opticalflow_ri_tpu_torch.utils import io as tio
 from opticalflow_ri_tpu_torch.utils import native as tnative
+from test_torch_cuda_campaign import write_tiff
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,12 +68,12 @@ def test_tiff_read_batch(tmp_path):
     np.testing.assert_array_equal(tio.load_image_batch(paths), jio.load_image_batch(paths))
 
 
-def test_chip_smoke_tiff_writer_decodes(tmp_path):
-    """The card-side campaign writes its frames with chip_smoke.write_tiff
+def test_campaign_tiff_writer_decodes(tmp_path):
+    """The card's campaign test writes its frames with its ``write_tiff``
     (no PIL there): the native decoder and PIL read them back exactly."""
     arr = np.random.default_rng(3).integers(0, 256, (29, 41)).astype(np.uint8)
     p = str(tmp_path / "w.tif")
-    chip_smoke.write_tiff(p, arr)
+    write_tiff(p, arr)
     np.testing.assert_array_equal(tnative.tiff_read(p), arr.astype(np.float32))
     np.testing.assert_array_equal(np.asarray(Image.open(p)), arr)
 

@@ -752,20 +752,24 @@ def test_poly_expand_refuses_bad_arguments(n, rows, match):
 
 # ---------------------------------------------------------------- LK GN: the per-pixel exit
 
-def _load_chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", CSRC.parents[1] / "chip_smoke.py")
+def load_kernel_times():
+    """scripts/torch_kernel_times.py as a module (it needs no card): the home
+    of ``gn_exit`` and ``capture_lk_args``."""
+    path = CSRC.parents[1] / "scripts" / "torch_kernel_times.py"
+    spec = importlib.util.spec_from_file_location("torch_kernel_times", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-GN_EXIT = _load_chip_smoke().gn_exit
+GN_EXIT = load_kernel_times().gn_exit
 
 
 def _gn_exit_model(t1, t2, fields, n_iter, R, hw):
-    """csrc/lk_iter.cu's GN loop with its per-pixel exit: chip_smoke.py's
-    ``gn_exit``, the one model of it (the card scripts count a pixel's steps
-    with it).  Returns (px, py, status, steps a pixel ran)."""
+    """csrc/lk_iter.cu's GN loop with its per-pixel exit:
+    scripts/torch_kernel_times.py's ``gn_exit``, the one model of it (the
+    kernel timer counts a pixel's steps with it).  Returns (px, py, status,
+    steps a pixel ran)."""
     return GN_EXIT(lk_iter, t1, t2, *fields, n_iter, R, hw)
 
 

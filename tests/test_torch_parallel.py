@@ -265,13 +265,17 @@ def _port_sources():
     pkg = os.path.join(ROOT, "opticalflow_ri_tpu_torch")
     for d, _, files in os.walk(pkg):
         yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
-    yield os.path.join(ROOT, "chip_smoke.py")
+    # the card machine has no JAX: its scripts and card tests run there
+    for d, prefix in (("scripts", "torch_"), ("tests", "test_torch_cuda_")):
+        yield from (os.path.join(ROOT, d, f) for f in os.listdir(os.path.join(ROOT, d))
+                    if f.startswith(prefix) and f.endswith(".py"))
 
 
 @pytest.mark.parametrize("path", sorted(os.path.relpath(p, ROOT) for p in _port_sources()))
 def test_port_source_imports_no_jax(path):
-    """No module of the port, and not chip_smoke.py, imports jax or the JAX
-    package (``opticalflow_ri_tpu``)."""
+    """No module of the port, and none of the scripts and card tests that run
+    beside it on the card, imports jax or the JAX package
+    (``opticalflow_ri_tpu``)."""
     import re
 
     with open(os.path.join(ROOT, path)) as f:
