@@ -43,10 +43,14 @@ against the whole-image call).  Per kernel call it prints one JSON line with
   * ``bound_ms``: the least time of the call (``bound_ms``): for K1, K4/K5, K6
     and K7 the benchmark's own count of the stage (``pivbench/work.py``,
     ``pivbench/lk_work.py``), for the others ``KERNEL_COSTS`` here.
-``--hs-niters`` sets the HS iteration counts (default 100); ``--hs-steps``
-and ``--ls-steps`` repeat the HS and Liu-Shen kernels at those steps per
-launch (``hs_iter.STEPS_PER_LAUNCH``, ``liu_shen_iter.STEPS_PER_LAUNCH``; a
-tree without it is timed at its own design).
+``--hs-niters`` sets the HS iteration counts (default 100; the cells run
+600 at 256^2 and 512^2); each HS line names the path K1 took (``path``:
+``resident``, one launch, with its ``tiles``, where the shape fits one wave
+of the card, else ``blocked``) and its ``launches``.  ``--hs-steps`` and
+``--ls-steps`` repeat the HS and Liu-Shen kernels at those steps per launch
+(``hs_iter.STEPS_PER_LAUNCH``, the blocked path's depth, and
+``liu_shen_iter.STEPS_PER_LAUNCH``; a tree without it is timed at its own
+design).
 ``--configs`` also times those configs end to end (``run_config`` on the
 512^2 synthetic pair, one call of each per turn: median and quartiles of the
 event intervals, and the host's enqueue time per call).  ``--root`` imports the
@@ -120,6 +124,17 @@ def kernel_cost(name: str, h: int, w: int, niter: float = 100, gn_steps: float =
     if name == "fb_fused":
         return work.fb_iterate(n, rounds)
     return KERNEL_COSTS[name](h, w, gn_steps=gn_steps)
+
+
+def hs_path(hs_iter, dev, n: int, niter: int, steps: int) -> dict:
+    """Which path K1 takes at n x n and ``niter`` iterations: resident (one
+    launch, with its tiles) where the tree has that path and the shape fits
+    one wave, else blocked (``steps`` iterations a launch)."""
+    pick = getattr(hs_iter, "resident_tiles", None)
+    tiles = pick(n, n, niter, hs_iter.sm_count(dev)) if pick else None
+    if tiles is None:
+        return {"path": "blocked", "steps_per_launch": steps, "launches": -(-niter // steps)}
+    return {"path": "resident", "tiles": tiles._asdict(), "launches": 1}
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -336,7 +351,7 @@ def main() -> None:
 
                     k, p = ab(kernel, plain, reps)
                     emit(kernel="hs_jacobi", shape=list(shape), niter=niter,
-                         steps_per_launch=steps, event_ms=k, plain_event_ms=p,
+                         **hs_path(hs_iter, dev, n, niter, steps), event_ms=k, plain_event_ms=p,
                          device_ms=device_ms(kernel, 20), host_ms=host_ms(kernel, reps),
                          bound_ms=b, bound_by=by)
             hs_iter.STEPS_PER_LAUNCH = design

@@ -159,6 +159,34 @@ def test_scan_equals_eager_pairs(name, dev):
         scan.release()
 
 
+@pytest.mark.parametrize("name", ["LiuSE_PyHSchunck_Fs3_4_PyrLvls2", "HS_Fs3_4_PyrLvls2"])
+def test_scan_resident_hs_equals_eager(name, dev):
+    """A 512^2 stack through ``scan_pipeline`` of a two-level HS configuration
+    (K1 on the resident path at 256^2 and 512^2: one cooperative launch a
+    solve, captured into the graph): the capture launches resident solves,
+    two a run, the replays none, and every pair equals its eager run, which
+    takes two resident solves, bit for bit."""
+    pairs = [_pair((512, 512), seed, dev) for seed in range(3)]
+    im1s = torch.stack([p[0] for p in pairs])
+    im2s = torch.stack([p[1] for p in pairs])
+    scan = scan_pipeline(name)
+    try:
+        before = hs_iter.hs_iterate.resident
+        us, vs = scan(im1s, im2s)
+        captured = hs_iter.hs_iterate.resident - before
+        assert captured > 0 and captured % 2 == 0
+        after = hs_iter.hs_iterate.resident
+        us2, vs2 = scan(im1s, im2s)
+        assert hs_iter.hs_iterate.resident == after
+        for k, p in enumerate(pairs):
+            before = hs_iter.hs_iterate.resident
+            want = run_config(name, *p)
+            assert hs_iter.hs_iterate.resident == before + 2
+            assert _equal((us[k], vs[k]), want) and _equal((us2[k], vs2[k]), want)
+    finally:
+        scan.release()
+
+
 def _host_stack(shape, seeds):
     pairs = [particle_image_pair(shape=shape, seed=s, max_disp=2.5)[:2] for s in seeds]
     return tuple(np.stack([p[j] for p in pairs]).astype(np.float32) for j in range(2))

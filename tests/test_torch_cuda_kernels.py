@@ -10,9 +10,12 @@ Built with -fmad=false, every kernel's flow equals its plain version's bit
 for bit; the Liu-Shen error, reduced in another order, agrees to 1e-5
 relative, and the Liu-Shen stop comes at the same iteration, also when it
 falls inside one of the kernel's launches of T steps.  The HS kernel
-is held at every niter mod T (its iterations per launch) and at several T,
-and K1 and K4/K5 under every per-side ``edges`` mask and at the tiles and
-stripes the sharded solves give them at 2048^2.
+is held on both of its paths: the resident one (one launch a solve, every
+shape on the H100 up to 512^2) at 0 to 600 iterations, and the blocked one
+(2048^2, and the smaller shapes forced onto it) at every niter mod T (its
+iterations per launch) and at several T; K1 and K4/K5 under every per-side
+``edges`` mask and at the tiles and stripes the sharded solves give them at
+2048^2.
 The LK build equals its plain version bit for bit, with the symmetric, the
 asymmetric and a four-run window; so do the GN loop (px, py and status, on
 inputs whose pixels stop at every step from 0 to 5, and on the arguments
@@ -81,7 +84,7 @@ def _rand(rng, shape, lo, hi, dev):
 T = hs_iter.STEPS_PER_LAUNCH
 HS_NITERS = [0, 1, T - 1, T, T + 1, 45, 100, 600]
 HS_CASES = [(shape, n) for shape in [(2, 2), (3, 517), (47, 61), (333, 517), (512, 512),
-                                     (2048, 2048)]
+                                     (2048, 2048), (256, 256)]
             for n in HS_NITERS]
 
 
@@ -93,22 +96,36 @@ def _hs_inputs(dev, shape, seed=0):
 
 @pytest.mark.parametrize("shape,niter", HS_CASES, ids=[f"{s[0]}x{s[1]}-{n}" for s, n in HS_CASES])
 def test_hs_kernel_equals_plain(dev, shape, niter):
-    """Every niter mod T (the launches' block depth), 100 and 600 as the HS
-    and PyHSchunck configs run them, and shapes smaller than the halo."""
+    """Every niter mod T (the blocked launches' depth), 100 and 600 as the HS
+    and PyHSchunck configs run them, and shapes smaller than the halo.  On
+    the H100 every shape but 2048^2 takes the resident path (one launch, the
+    tiles trading their bands every few iterations; 256^2 and 512^2 are the
+    two levels of the 512^2 configurations) and 2048^2 the blocked one."""
     fx, fy, ft, u0, v0 = _hs_inputs(dev, shape)
-    before = hs_iter.hs_iterate.launches
+    tiles = hs_iter.resident_tiles(*shape, niter, hs_iter.sm_count(dev))
+    assert (tiles is None) == (shape == (2048, 2048))
+    before, resident = hs_iter.hs_iterate.launches, hs_iter.hs_iterate.resident
     got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter)
     want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter)
     torch.cuda.synchronize()
     assert hs_iter.hs_iterate.launches == before + 1
+    assert hs_iter.hs_iterate.resident == resident + (tiles is not None)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _blocked_path(monkeypatch):
+    """Every shape on the blocked path, as if no tiling fitted one wave."""
+    monkeypatch.setattr(hs_iter, "resident_tiles", lambda *args: None)
 
 
 @pytest.mark.parametrize("steps", [1, 3, 16, hs_iter.MAX_STEPS_PER_LAUNCH])
 @pytest.mark.parametrize("shape", [(2, 2), (333, 517)])
 def test_hs_kernel_block_depths_equal_plain(dev, steps, shape, monkeypatch):
+    """The blocked path at other depths, on shapes that would take the
+    resident one."""
     fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=1)
+    _blocked_path(monkeypatch)
     monkeypatch.setattr(hs_iter, "STEPS_PER_LAUNCH", steps)
     got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, 45)
     want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, 45)
@@ -226,14 +243,56 @@ HS_MASKED = ([(shape, edges) for shape in [(47, 61), (333, 517)] for edges in ED
 def test_hs_kernel_masked_equals_plain(dev, shape, edges):
     """The per-side border mask of a sharded tile: the whole array, apron
     edges included, bit for bit, at 1, T-1 and T iterations and the last
-    launch of a 100-iteration solve (100 mod T)."""
+    launch of a 100-iteration solve (100 mod T); on the resident path (up to
+    333 x 517) also at 45 and 600, many rounds of band exchanges."""
     fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=5)
-    for niter in sorted({1, T - 1, T, 100 % T or T}):
+    resident = hs_iter.resident_tiles(*shape, 600, hs_iter.sm_count(dev)) is not None
+    for niter in sorted({1, T - 1, T, 100 % T or T} | ({45, 600} if resident else set())):
         got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter, edges)
         want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter, edges)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+HS_RESIDENT_MASKED = [(shape, edges) for shape in [(256, 256), (512, 512), (2, 2), (3, 517)]
+                      for edges in EDGES]
+
+
+@pytest.mark.parametrize("shape,edges", HS_RESIDENT_MASKED,
+                         ids=[f"{s[0]}x{s[1]}-{e}" for s, e in HS_RESIDENT_MASKED])
+def test_hs_resident_masked_equals_plain(dev, shape, edges):
+    """The resident path under every ``edges`` mask at the two levels of the
+    512^2 configurations and at shapes thinner than a ring, at 0, 1, T-1,
+    T, T+1 and 600 iterations."""
+    fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=6)
+    for niter in (0, 1, T - 1, T, T + 1, 600):
+        assert hs_iter.resident_tiles(*shape, niter, hs_iter.sm_count(dev)) is not None
+        got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter, edges)
+        want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter, edges)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+HS_BLOCKED_MASKED = [(shape, edges) for shape in [(47, 61), (333, 517)] for edges in EDGES]
+
+
+@pytest.mark.parametrize("shape,edges", HS_BLOCKED_MASKED,
+                         ids=[f"{s[0]}x{s[1]}-{e}" for s, e in HS_BLOCKED_MASKED])
+def test_hs_blocked_masked_equals_plain(dev, shape, edges, monkeypatch):
+    """The blocked path under every ``edges`` mask on shapes that would take
+    the resident one, across launches (9 and 45 iterations)."""
+    fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=5)
+    _blocked_path(monkeypatch)
+    before = hs_iter.hs_iterate.resident
+    for niter in (1, T, T + 1, 45):
+        got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter, edges)
+        want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter, edges)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert hs_iter.hs_iterate.resident == before
 
 
 # the rows-sharded solve's block depth on the (1, 4, 1) mesh's 512-row

@@ -10,6 +10,13 @@ Here:
     a T-deep halo, the mirror border as an index rule, a missing neighbour at
     the tile's interior edge read as the cell itself), run tile by tile
     through the plan, against ``hs_iterate_plain`` bit for bit;
+  * K1's path rule and tile sizing, ``hs_iter.resident_tiles`` (a pure
+    function of (h, w, niter, SM count): the 512^2 configurations' levels
+    resident on at least 120 of the H100's 132 SMs, 2048^2 and the sharded
+    tiles blocked, every tiling within the kernel entry's rules), a NumPy
+    model of the resident schedule (rounds, the cores' bands published, the
+    rings read back) against ``hs_iterate_plain`` bit for bit under four
+    ``edges`` masks, and the ``hs_iterate.resident`` counter;
   * the ladder table compiled into ``csrc/lk_build.cu`` against
     ``_smooth_factorization``, the run table the wrapper packs, and a NumPy
     model of the kernel's per-thread register ladder (32 outputs a thread in
@@ -152,6 +159,199 @@ def test_hs_blocked_model_equals_plain(shape, ext, T):
                                         21.0, niter)
         for g, w_ in zip(got, want):
             np.testing.assert_array_equal(g, w_.numpy())
+
+
+# ---------------------------------------------------------------- HS resident path
+
+H100_SMS = 132
+
+
+def _tiling_ok(tiles, h, w, sms):
+    """The kernel entry's rules for a resident tiling (csrc/hs_jacobi.cu)."""
+    t = tiles
+    assert t.strips in hs_iter.RESIDENT_STRIPS and t.ring >= 1 and t.core_w >= 1
+    assert t.rows * t.strips <= hs_iter.MAX_THREADS and t.rows * t.strips % 32 == 0
+    assert 1 <= t.tiles <= sms
+    assert (t.grid_y - 1) * t.core_h < h <= t.grid_y * t.core_h
+    assert (t.grid_x - 1) * t.core_w < w <= t.grid_x * t.core_w
+    if t.tiles > 1:
+        assert 1 <= t.round <= t.ring
+        assert t.grid_y == 1 or t.ring <= t.core_h
+        assert t.grid_x == 1 or t.ring <= t.core_w
+    else:
+        assert t.ring == 1 and t.round >= 1
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_hs_resident_tiles_cover_the_card(n):
+    """The two levels of the ls_hs_512 configuration, 600 iterations each:
+    one resident launch whose tiles cover at least 120 of the H100's 132
+    SMs, each a valid tiling."""
+    tiles = hs_iter.resident_tiles(n, n, 600, H100_SMS)
+    assert tiles is not None
+    _tiling_ok(tiles, n, n, H100_SMS)
+    assert 120 <= tiles.tiles <= H100_SMS
+    assert tiles.exchanges(600) == -(-600 // tiles.round) - 1
+
+
+@pytest.mark.parametrize("shape", [(2048, 2048), (1024, 1024), (1032, 1032), (2048, 1032),
+                                   (520, 2056)])
+@pytest.mark.parametrize("niter", [0, 1, 8, 100, 600])
+def test_hs_resident_tiles_leave_large_shapes_blocked(shape, niter):
+    """Shapes whose tiles do not fit one wave (2048^2, the sharded solves'
+    1024^2 and 2048 x 1024 tiles with their aprons, a rows-sharded stripe)
+    take the blocked path; its launch plan is the one it was."""
+    assert hs_iter.resident_tiles(*shape, niter, H100_SMS) is None
+    assert hs_iter.launch_plan(600, hs_iter.STEPS_PER_LAUNCH) == tuple(
+        (8, hs_iter.OUT if k % 2 == 0 else hs_iter.TMP) for k in range(75))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (3, 517), (47, 61), (333, 517), (256, 256),
+                                   (512, 512), (264, 264), (600, 300), (517, 3), (64, 64)])
+@pytest.mark.parametrize("niter", [0, 1, 7, 8, 9, 45, 600])
+@pytest.mark.parametrize("sms", [H100_SMS, 16, 1])
+def test_hs_resident_tiles_are_valid(shape, niter, sms):
+    """Every tiling the rule picks keeps the kernel's rules, on the H100's
+    SM count and on smaller cards; 600 iterations at 512^2 take the tiling
+    the rule gives for the SM count alone (the path reads nothing else)."""
+    tiles = hs_iter.resident_tiles(*shape, niter, sms)
+    if tiles is None:
+        assert sms < H100_SMS
+        return
+    _tiling_ok(tiles, *shape, sms)
+    assert hs_iter.resident_tiles(*shape, niter, sms) is tiles  # a pure function, cached
+
+
+def _hs_resident_model(fx, fy, ft, u0, v0, alpha, niter, edges, tiles):
+    """The resident launch modelled tile by tile in float32: each tile's
+    extended state kept across rounds, every ``round`` iterations the cores'
+    bands published into NaN-filled planes and each ring read back from
+    them (a NaN read would be a ring cell no neighbour published)."""
+    h, w = u0.shape
+    t = tiles
+    W = 4 * t.strips
+    rd = np.float32(1.0) / ((np.float32(alpha) * np.float32(alpha) + fx * fx) + fy * fy)
+    state = []
+    for by in range(t.grid_y):
+        for bx in range(t.grid_x):
+            gy = by * t.core_h - t.ring + np.arange(t.rows)
+            gx = bx * t.core_w - t.ring + np.arange(W)
+            ry = np.flatnonzero((gy >= 0) & (gy < h))
+            rx = np.flatnonzero((gx >= 0) & (gx < w))
+            r, c = np.arange(t.rows), np.arange(W)
+            rm = np.where((gy == 0) & bool(edges & hs_iter.TOP), r + 1, r - 1)
+            rp = np.where((gy == h - 1) & bool(edges & hs_iter.BOTTOM), r - 1, r + 1)
+            cm = np.where((gx == 0) & bool(edges & hs_iter.LEFT), c + 1, c - 1)
+            cp = np.where((gx == w - 1) & bool(edges & hs_iter.RIGHT), c - 1, c + 1)
+            rm, cm = np.where(rm < 0, r, rm), np.where(cm < 0, c, cm)
+            rp, cp = np.where(rp >= t.rows, r, rp), np.where(cp >= W, c, cp)
+            sl, img = np.ix_(ry, rx), np.ix_(gy[ry], gx[rx])
+            su, sv = np.zeros((t.rows, W), np.float32), np.zeros((t.rows, W), np.float32)
+            su[sl], sv[sl] = u0[img], v0[img]
+            core = np.zeros((t.rows, W), bool)
+            core[t.ring:t.ring + t.core_h, t.ring:t.ring + t.core_w] = True
+            inside = np.zeros((t.rows, W), bool)
+            inside[sl] = True
+            state.append(dict(gy=gy, gx=gx, rm=rm, rp=rp, cm=cm, cp=cp, sl=sl, img=img, su=su,
+                              sv=sv, core=core, inside=inside,
+                              coef=tuple(a[img] for a in (fx, fy, ft, rd))))
+    done = 0
+    while True:
+        n = min(t.round, niter - done)
+        for s in state:
+            cfx, cfy, cft, crd = s["coef"]
+            for _ in range(n):
+                avg = []
+                for f in (s["su"], s["sv"]):
+                    rs = (f[:, s["cm"]] + np.float32(2.0) * f) + f[:, s["cp"]]
+                    q = (rs[s["rm"]] + np.float32(2.0) * rs) + rs[s["rp"]]
+                    avg.append(((q - np.float32(4.0) * f) * np.float32(TWELFTH))[s["sl"]])
+                ua, va = avg
+                der = ((cfx * ua + cfy * va) + cft) * crd
+                s["su"], s["sv"] = s["su"].copy(), s["sv"].copy()
+                s["su"][s["sl"]], s["sv"][s["sl"]] = ua - cfx * der, va - cfy * der
+        done += n
+        if done >= niter:
+            break
+        xu, xv = np.full((h, w), np.nan, np.float32), np.full((h, w), np.nan, np.float32)
+        for s in state:
+            r, c = np.nonzero(s["core"] & s["inside"])
+            band = ((r < 2 * t.ring) | (r >= t.core_h) | (c < 2 * t.ring) | (c >= t.core_w))
+            r, c = r[band], c[band]
+            xu[s["gy"][r], s["gx"][c]] = s["su"][r, c]
+            xv[s["gy"][r], s["gx"][c]] = s["sv"][r, c]
+        for s in state:
+            r, c = np.nonzero(~s["core"] & s["inside"])
+            s["su"][r, c] = xu[s["gy"][r], s["gx"][c]]
+            s["sv"][r, c] = xv[s["gy"][r], s["gx"][c]]
+            assert not np.isnan(s["su"][r, c]).any(), "a ring cell no neighbour published"
+    u_out, v_out = np.full((h, w), np.nan, np.float32), np.full((h, w), np.nan, np.float32)
+    for s in state:
+        r, c = np.nonzero(s["core"] & s["inside"])
+        u_out[s["gy"][r], s["gx"][c]] = s["su"][r, c]
+        v_out[s["gy"][r], s["gx"][c]] = s["sv"][r, c]
+    return u_out, v_out
+
+
+def _tiling(h, w, strips, ring, core_h):
+    core_w = 4 * strips - 2 * ring
+    return hs_iter.ResidentTiles(strips, ring, core_h, -(-h // core_h), -(-w // core_w), ring)
+
+
+RESIDENT_MODEL_CASES = [
+    ((13, 21), _tiling(13, 21, 8, 1, 14)),      # one tile: ring 1, no round
+    ((40, 70), _tiling(40, 70, 8, 3, 6)),       # 7 x 3 tiles, rings of 3
+    ((40, 70), _tiling(40, 70, 8, 7, 10)),      # rings 7 deep, 10-row cores
+    ((37, 61), _tiling(37, 61, 16, 2, 8)),      # 64-wide tiles, a ragged last row and column
+    ((9, 50), _tiling(9, 50, 8, 5, 10)),        # one row of tiles: a ring deeper than the image
+]
+
+
+@pytest.mark.parametrize("shape,tiles", RESIDENT_MODEL_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{t.strips}-{t.ring}-{t.core_h}"
+                              for s, t in RESIDENT_MODEL_CASES])
+@pytest.mark.parametrize("edges", [hs_iter.ALL, 0, hs_iter.TOP | hs_iter.LEFT,
+                                   hs_iter.BOTTOM | hs_iter.RIGHT])
+def test_hs_resident_model_equals_plain(shape, tiles, edges):
+    """The resident schedule (rounds of ``round`` iterations, the cores'
+    bands traded into the rings) equals ``hs_iterate_plain`` bit for bit at
+    every niter mod the ring's depth, under four ``edges`` masks."""
+    h, w = shape
+    _tiling_ok(tiles, h, w, H100_SMS)
+    rng = np.random.default_rng(11)
+    fx, fy, ft, u0, v0 = (rng.uniform(-3, 3, shape).astype(np.float32) for _ in range(5))
+    T = tiles.ring
+    for niter in sorted({0, 1, T - 1, T, T + 1, 2 * T + 1, 3 * T}):
+        got = _hs_resident_model(fx, fy, ft, u0, v0, 21.0, niter, edges, tiles)
+        want = hs_iter.hs_iterate_plain(*(torch.from_numpy(a) for a in (fx, fy, ft, u0, v0)),
+                                        21.0, niter, edges)
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g, w_.numpy())
+
+
+def test_hs_iterate_counts_the_resident_solves(monkeypatch):
+    """``hs_iterate.launches`` counts every call that launches the kernel,
+    ``hs_iterate.resident`` those on the resident path: a 256^2 and a 512^2
+    solve of 600 iterations (the ls_hs_512 configuration's two levels) one
+    each, a 2048^2 solve none; CPU tensors, which take the plain version,
+    neither.  The launches are stubbed: meta tensors stand for the card's."""
+    calls = []
+    monkeypatch.setattr(hs_iter.build, "check_fields", lambda *a: None)
+    monkeypatch.setattr(hs_iter, "sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(hs_iter, "_blocked", lambda *a: calls.append("blocked"))
+    monkeypatch.setattr(hs_iter, "_resident",
+                        lambda *a: calls.append(("resident", a[-1].tiles)))
+    monkeypatch.setattr(hs_iter.hs_iterate, "launches", 0)
+    monkeypatch.setattr(hs_iter.hs_iterate, "resident", 0)
+    for n in (256, 512, 2048):
+        z = torch.empty((n, n), device="meta")
+        hs_iter.hs_iterate(z, z, z, z, z, 21.0, 600)
+    assert (hs_iter.hs_iterate.launches, hs_iter.hs_iterate.resident) == (3, 2)
+    assert [c if c == "blocked" else c[0] for c in calls] == ["resident", "resident", "blocked"]
+    assert all(c[1] >= 120 for c in calls if c != "blocked")
+    z = torch.zeros((8, 8))
+    hs_iter.hs_iterate(z, z, z, z, z, 21.0, 600)
+    assert (hs_iter.hs_iterate.launches, hs_iter.hs_iterate.resident) == (3, 2)
 
 
 # ---------------------------------------------------------------- LK build
