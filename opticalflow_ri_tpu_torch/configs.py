@@ -5,11 +5,15 @@ package's; all of its configurations are registered with the same fields:
 five HS, four Liu-Shen, five dense-LK and five Farneback ones.
 
 Use ``run_config(name, im1, im2)`` or ``build_config(name)`` for the pieces.
+The three configurations whose main adapter is the calibrated Horn-Schunck
+one (``HS_CALIBRATED``) also run on any other row of ``HS_H_TABLE`` by a
+calibrated name ``"<config>@<bits>/<ni>"``, e.g.
+``"LiuSE_PyHSchunck_Fs3_4_PyrLvls2@Bits12/Ni06"`` for 12-bit frames.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
 from opticalflow_ri_tpu_torch.models.farneback import FarnebackAdapter
@@ -72,8 +76,8 @@ class FlowConfig:
         )
 
 
-def _hs(levels, niter=600):
-    return lambda: HSOpticalFlowAlgoAdapter(hs_alphas(levels), niter)
+def _hs(levels, niter=600, bits="Bits08", ni="Ni06"):
+    return lambda: HSOpticalFlowAlgoAdapter(hs_alphas(levels, 1, bits, ni), niter)
 
 
 CONFIGS = {}
@@ -163,11 +167,37 @@ _register(FlowConfig(
 # JAX-package configurations not ported yet: none, every one is registered above
 UNPORTED: dict[str, str] = {}
 
+# the configurations built on ``_hs``: their HS alphas come from a row of
+# HS_H_TABLE (Bits08/Ni06 under the plain name), at 600 iterations a level
+HS_CALIBRATED = ("PyHSchunck_Fs3_4", "PyHSchunck_Fs3_4_PyrLvls2",
+                 "LiuSE_PyHSchunck_Fs3_4_PyrLvls2")
+
+
+def base_name(name: str) -> str:
+    """The registered configuration a name runs: ``name`` without its
+    calibration (``"PyHSchunck_Fs3_4@Bits12/Ni06"`` -> ``"PyHSchunck_Fs3_4"``)."""
+    return name.partition("@")[0]
+
 
 def build_config(name: str) -> FlowConfig:
+    """The configuration ``name``: a key of ``CONFIGS``, or a calibrated name
+    ``"<config>@<bits>/<ni>"``, the ``HS_CALIBRATED`` config ``<config>``
+    with its alphas ``hs_alphas(levels, 1, bits, ni)`` (the upstream's
+    scripts at another bit depth or seeding)."""
     if name in CONFIGS:
         return CONFIGS[name]
-    raise KeyError(f"unknown config {name!r}")
+    base, at, row = name.partition("@")
+    if not at:
+        raise KeyError(f"unknown config {name!r}")
+    if base not in HS_CALIBRATED:
+        raise KeyError(f"unknown config {name!r}: a calibrated name runs one of "
+                       f"{', '.join(HS_CALIBRATED)}")
+    bits, _, ni = row.partition("/")
+    if (bits, ni) not in HS_H_TABLE:
+        rows = ", ".join(f"{b}/{n}" for b, n in HS_H_TABLE)
+        raise KeyError(f"unknown config {name!r}: no h-table row {row!r}; the rows are {rows}")
+    cfg = CONFIGS[base]
+    return replace(cfg, name=name, main=_hs(cfg.pyr_levels, bits=bits, ni=ni))
 
 
 def run_config(name: str, im1, im2, device="cuda"):

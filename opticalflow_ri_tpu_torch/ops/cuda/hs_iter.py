@@ -229,7 +229,10 @@ def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int, edges: int = ALL):
     the shape (one launch), else on the blocked path (one C call enqueues
     the launches of ``launch_plan``, ``STEPS_PER_LAUNCH`` iterations each).
     ``hs_iterate.launches`` counts the calls that launched the kernel,
-    ``hs_iterate.resident`` those of them on the resident path.
+    ``hs_iterate.resident`` those of them on the resident path,
+    ``hs_iterate.blocked`` those on the blocked path and
+    ``hs_iterate.blocked_launches`` the launches these made (75 for 600
+    iterations).
     """
     if not 0 <= int(edges) <= ALL:
         raise ValueError(f"edges must be a mask of TOP, BOTTOM, LEFT, RIGHT, got {edges}")
@@ -241,6 +244,7 @@ def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int, edges: int = ALL):
     tiles = resident_tiles(h, w, niter, sm_count(fx.device))
     hs_iterate.launches += 1
     if tiles is None:
+        hs_iterate.blocked += 1
         return _blocked(fx, fy, ft, u0, v0, alpha, niter, edges)
     hs_iterate.resident += 1
     return _resident(fx, fy, ft, u0, v0, alpha, niter, edges, tiles)
@@ -248,11 +252,14 @@ def hs_iterate(fx, fy, ft, u0, v0, alpha, niter: int, edges: int = ALL):
 
 hs_iterate.launches = 0
 hs_iterate.resident = 0
+hs_iterate.blocked = 0
+hs_iterate.blocked_launches = 0
 
 
 def _blocked(fx, fy, ft, u0, v0, alpha, niter, edges):
     steps = STEPS_PER_LAUNCH
     plan = launch_plan(niter, steps)
+    hs_iterate.blocked_launches += len(plan)
     table = plan_table(plan)
     h, w = fx.shape
     u_out, v_out = (torch.empty((h, w), dtype=torch.float32, device=fx.device) for _ in range(2))

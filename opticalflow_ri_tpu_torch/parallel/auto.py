@@ -39,17 +39,19 @@ import torch
 import torch.distributed as dist
 
 from opticalflow_ri_tpu_torch.compile import CompiledPipeline, _device_of
+from opticalflow_ri_tpu_torch.configs import base_name
 from opticalflow_ri_tpu_torch.parallel.mesh import axis_group, axis_size
 
 # single-level Horn-Schunck configs: pipeline == calibrated prefilter + one
-# HS solve, exactly what the kernel-sharded step implements
+# HS solve, exactly what the kernel-sharded step implements; a calibrated
+# name (``configs.build_config``) routes as its base config
 HS_SINGLE_LEVEL = {"PyHSchunck_Fs3_4", "HS_Fs3_4", "HS_Fs0_0"}
 
 
 def hs_kernel_sharded_eligible(name: str, mesh, shape):
     """T-block when ``auto_sharded_pipeline`` takes route 1 for ``name`` at
     the global ``shape``; None otherwise."""
-    if name not in HS_SINGLE_LEVEL:
+    if base_name(name) not in HS_SINGLE_LEVEL:
         return None
     from opticalflow_ri_tpu_torch.parallel.sharded_kernel import pick_hs_shard_t
 
@@ -108,7 +110,7 @@ def sharded_pipeline_fn(name: str, mesh):
     route 1 for the single-level HS configs, route 2 for every other (the
     module docstring).  The counterpart of ``compile.pipeline_fn``, and the
     one sharded entry that runs CUDA tiles on a gloo group."""
-    if name in HS_SINGLE_LEVEL:
+    if base_name(name) in HS_SINGLE_LEVEL:
         return _hs_config_kernel_sharded(name, mesh)
     return _pyramid_sharded(name, mesh)
 

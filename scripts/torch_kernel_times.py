@@ -4,11 +4,11 @@
 (K12/K13), fused Farneback loop (K14), Farneback expansion and pair warp (K3)
 kernels on one GPU.
 
-    python3 scripts/torch_kernel_times.py [--root DIR] [--shapes 512 2048]
+    python3 scripts/torch_kernel_times.py [--root DIR] [--shapes 512 2048 2160x2560]
         [--hs-steps 4 8 16] [--hs-niters 100] [--ls-steps 4 8 12]
         [--skip hs ls lk fb expand warp] [--configs NAME ...] [--reps 15]
 
-For each square shape: HS (alpha 21, random derivatives of two uniform
+For each shape (``N`` square, or ``HxW``): HS (alpha 21, random derivatives of two uniform
 frames, zero flow); Liu-Shen (h = 10, fields of two uniform frames, zero
 flow, 60 steps) with tol = 0 and with a tol that stops the plain solve near
 step 30; the LK build at half window 13, R = 5 (121 shifts, the symmetric
@@ -126,15 +126,21 @@ def kernel_cost(name: str, h: int, w: int, niter: float = 100, gn_steps: float =
     return KERNEL_COSTS[name](h, w, gn_steps=gn_steps)
 
 
-def hs_path(hs_iter, dev, n: int, niter: int, steps: int) -> dict:
-    """Which path K1 takes at n x n and ``niter`` iterations: resident (one
+def hs_path(hs_iter, dev, h: int, w: int, niter: int, steps: int) -> dict:
+    """Which path K1 takes at h x w and ``niter`` iterations: resident (one
     launch, with its tiles) where the tree has that path and the shape fits
     one wave, else blocked (``steps`` iterations a launch)."""
     pick = getattr(hs_iter, "resident_tiles", None)
-    tiles = pick(n, n, niter, hs_iter.sm_count(dev)) if pick else None
+    tiles = pick(h, w, niter, hs_iter.sm_count(dev)) if pick else None
     if tiles is None:
         return {"path": "blocked", "steps_per_launch": steps, "launches": -(-niter // steps)}
     return {"path": "resident", "tiles": tiles._asdict(), "launches": 1}
+
+
+def parse_shape(text: str) -> tuple:
+    """A ``--shapes`` entry: ``N`` for N x N, or ``HxW``."""
+    h, _, w = text.partition("x")
+    return int(h), int(w or h)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -226,7 +232,7 @@ def gn_exit(lk_iter, t1, t2, ia11, ia12, ia22, c1, c2, act0, px0, py0, n_iter, R
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--shapes", type=int, nargs="*", default=[512, 2048])
+    ap.add_argument("--shapes", type=parse_shape, nargs="*", default=[(512, 512), (2048, 2048)])
     ap.add_argument("--hs-steps", type=int, nargs="*", default=[])
     ap.add_argument("--hs-niters", type=int, nargs="+", default=[100])
     ap.add_argument("--reps", type=int, default=15)
@@ -330,9 +336,10 @@ def main() -> None:
         emit(config=name, shape=[512, 512], event_ms=med, event_q1_ms=q1, event_q3_ms=q3,
              host_ms=host_ms(fn, args.reps))
 
-    for n in args.shapes:
-        shape = (n, n)
-        reps = args.reps if n <= 1024 else max(3, args.reps // 3)
+    for h, w in args.shapes:
+        shape = (h, w)
+        big = h * w > 1024 * 1024
+        reps = max(3, args.reps // 3) if big else args.reps
         if "hs" not in args.skip:
             fx, fy, ft = hs_derivatives(rand(shape, 0, 255), rand(shape, 0, 255))
             z = torch.zeros(shape, device=dev)
@@ -341,7 +348,7 @@ def main() -> None:
                 if design > 1:
                     hs_iter.STEPS_PER_LAUNCH = steps
                 for niter in args.hs_niters:
-                    b, by = bound_ms(*kernel_cost("hs_jacobi", n, n, niter))
+                    b, by = bound_ms(*kernel_cost("hs_jacobi", h, w, niter))
 
                     def kernel(niter=niter):
                         return hs_iter.hs_iterate(fx, fy, ft, z, z, 21.0, niter)
@@ -351,7 +358,7 @@ def main() -> None:
 
                     k, p = ab(kernel, plain, reps)
                     emit(kernel="hs_jacobi", shape=list(shape), niter=niter,
-                         **hs_path(hs_iter, dev, n, niter, steps), event_ms=k, plain_event_ms=p,
+                         **hs_path(hs_iter, dev, h, w, niter, steps), event_ms=k, plain_event_ms=p,
                          device_ms=device_ms(kernel, 20), host_ms=host_ms(kernel, reps),
                          bound_ms=b, bound_by=by)
             hs_iter.STEPS_PER_LAUNCH = design
@@ -376,7 +383,7 @@ def main() -> None:
                 if design > 1:
                     liu_shen_iter.STEPS_PER_LAUNCH = steps
                 for label, tol, k in (("fixed", 0.0, 60), ("early-stop", stop, k_stop)):
-                    b, by = bound_ms(*kernel_cost("liu_shen", n, n, k))
+                    b, by = bound_ms(*kernel_cost("liu_shen", h, w, k))
 
                     def kernel(tol=tol):
                         return liu_shen_iter.liu_shen_iterate(10.0, fields, z, z, 60, tol)
@@ -408,9 +415,9 @@ def main() -> None:
 
             k, p = ab(kernel, plain, reps)
             torch.cuda.empty_cache()
-            b, by = bound_ms(*kernel_cost("lk_build", n, n))
+            b, by = bound_ms(*kernel_cost("lk_build", h, w))
             emit(kernel="lk_build", shape=list(shape), shifts=121, event_ms=k, plain_event_ms=p,
-                 device_ms=device_ms(kernel, 10 if n <= 1024 else 3), host_ms=host_ms(kernel, reps),
+                 device_ms=device_ms(kernel, 3 if big else 10), host_ms=host_ms(kernel, reps),
                  bound_ms=b, bound_by=by)
             # K7 on two inputs: the configs' own (what lk_gn_iterate receives in
             # one run_config("LK_Fs2_0") on the particle pair of this shape: a
@@ -430,7 +437,7 @@ def main() -> None:
                 steps = float(gn_exit(lk_iter, *gargs)[3].double().mean())
                 same = all(torch.equal(g, w_) for g, w_ in
                            zip(lk_iter.lk_gn_iterate(*gargs), lk_iter.lk_gn_iterate_plain(*gargs)))
-                b, by = bound_ms(*kernel_cost("lk_gn", n, n, gn_steps=steps))
+                b, by = bound_ms(*kernel_cost("lk_gn", h, w, gn_steps=steps))
 
                 def gn(gargs=gargs):
                     return lk_iter.lk_gn_iterate(*gargs)
@@ -469,15 +476,15 @@ def main() -> None:
                 return lk_iter.lk_fused_plain(*fargs)
 
             steps = float(gn_exit(lk_iter, *cfg_gn)[3].double().mean())
-            b, by = bound_ms(*kernel_cost("lk_fused", n, n, gn_steps=steps))
+            b, by = bound_ms(*kernel_cost("lk_fused", h, w, gn_steps=steps))
             same = all(torch.equal(g, w_) for g, w_ in zip(fused(), fused_plain()))
-            k, p = ab(fused, fused_plain, reps if n <= 1024 else 3)
+            k, p = ab(fused, fused_plain, 3 if big else reps)
             emit(kernel="lk_fused", shape=list(shape), input="configs (LK_Fs2_0)",
                  bitwise=same, event_ms=k, plain_event_ms=p,
-                 device_ms=device_ms(fused, 10 if n <= 1024 else 3),
+                 device_ms=device_ms(fused, 3 if big else 10),
                  build_only_device_ms=device_ms(
                      lambda: lk_iter.lk_fused(*fargs[:10], 0, *fargs[11:]),
-                     10 if n <= 1024 else 3),
+                     3 if big else 10),
                  host_ms=host_ms(fused, reps), bound_ms=b, bound_by=by)
             del slab, g_pair, t1, t2, bargs, cfg_gn, inputs, rand_fields, fargs
             torch.cuda.empty_cache()
@@ -487,7 +494,7 @@ def main() -> None:
                       for im in (im_a, im_b))
             z = torch.zeros(shape, device=dev)
             m = tent_sample.update_matrices(z, z, r0, r1)
-            b, by = bound_ms(*kernel_cost("fb_blur5_flow", n, n))
+            b, by = bound_ms(*kernel_cost("fb_blur5_flow", h, w))
             for window in ("gaussian", "box"):
                 taps, mode, scale = _window_blur_spec(33, window == "gaussian")
 
@@ -524,7 +531,7 @@ def main() -> None:
                 same = all(torch.equal(g, w_) for g, w_ in zip(fused(), fused_plain()))
                 k, p = ab(fused, fused_plain, reps)
                 # at 0 rounds the kernel copies the flow: no round to bound
-                b, by = (bound_ms(*kernel_cost("fb_fused", n, n, rounds=n_iters)) if n_iters
+                b, by = (bound_ms(*kernel_cost("fb_fused", h, w, rounds=n_iters)) if n_iters
                          else (None, None))
                 emit(kernel="fb_fused", shape=list(shape), n_iters=n_iters, taps=33,
                      window="gaussian", bitwise=same, event_ms=k, plain_event_ms=p,
@@ -537,7 +544,7 @@ def main() -> None:
         if "expand" not in args.skip:
             im_a, _, _, _ = particle_image_pair(shape=shape, seed=0)
             srcp = pad2d(torch.as_tensor(im_a, device=dev), ((7, 7), (0, 0)), "nearest")
-            b, by = bound_ms(*kernel_cost("fb_poly_expand", n, n))
+            b, by = bound_ms(*kernel_cost("fb_poly_expand", h, w))
             rec = dict(kernel="fb_poly_expand", shape=list(shape), poly_n=7, poly_sigma=1.5,
                        expansion_device_ms=device_ms(
                            lambda: poly_expansion_padded(srcp, 7, 1.5), 20),
@@ -575,17 +582,17 @@ def main() -> None:
                 return warp_tent.warp_pair_plain(*ims, *flows)
 
             k, p = ab(kernel, plain, reps)
-            b, by = bound_ms(*kernel_cost("warp_pair", n, n))
+            b, by = bound_ms(*kernel_cost("warp_pair", h, w))
             emit(kernel="warp_pair", shape=list(shape), mode="whole image", event_ms=k,
                  plain_event_ms=p, device_ms=device_ms(kernel, 50), host_ms=host_ms(kernel, reps),
                  bound_ms=b, bound_by=by)
             if "apron" in inspect.signature(warp_tent.warp_pair).parameters:
-                a, th, tw = 8, n // 2, n // 2
-                r0 = c0 = n // 4
+                a, th, tw = 8, h // 2, w // 2
+                r0, c0 = h // 4, w // 4
                 tiles = [pad2d(im, a, "nearest")[r0:r0 + th + 2 * a, c0:c0 + tw + 2 * a]
                          .contiguous() for im in ims]
                 cut = [f[r0:r0 + th, c0:c0 + tw].contiguous() for f in flows]
-                tile = dict(apron=a, row0=r0, col0=c0, img_h=n, img_w=n)
+                tile = dict(apron=a, row0=r0, col0=c0, img_h=h, img_w=w)
 
                 def padded():
                     return warp_tent.warp_pair(*tiles, *cut, **tile)
@@ -597,7 +604,7 @@ def main() -> None:
                            for g, w_ in zip(padded(), kernel()))
                 k, p = ab(padded, padded_plain, reps)
                 b, by = bound_ms(*kernel_cost("warp_pair", th, tw))
-                emit(kernel="warp_pair", shape=[th, tw], mode=f"padded, interior tile of {n}^2",
+                emit(kernel="warp_pair", shape=[th, tw], mode=f"padded, interior tile of {h}x{w}",
                      bitwise_whole_cropped=same, event_ms=k, plain_event_ms=p,
                      device_ms=device_ms(padded, 50), host_ms=host_ms(padded, reps),
                      bound_ms=b, bound_by=by)

@@ -11,7 +11,8 @@ JAX, with
 run bit for bit (up to 512^2, and at 2048^2 one configuration a solver), its
 capture launches exactly the configuration's kernels (``expected_kernels``)
 and a replay none, each replay computes the pair it was given (two pairs in
-turns), ``scan_pipeline`` equals the eager path pair by pair, host stacks
+turns), ``scan_pipeline`` equals the eager path pair by pair (also for the
+12-bit calibrated name at 2560 x 2160, K1 on its blocked path), host stacks
 staged pair by pair through the two slots equal the per-pair replays and
 the whole-stack path, and ``release`` returns the graph's memory and the
 slots.
@@ -25,7 +26,7 @@ import pytest
 import torch
 
 from opticalflow_ri_tpu_torch.compile import compiled_pipeline, scan_pipeline
-from opticalflow_ri_tpu_torch.configs import CONFIGS, run_config
+from opticalflow_ri_tpu_torch.configs import CONFIGS, base_name, run_config
 from opticalflow_ri_tpu_torch.ops.cuda import (
     blur5_flow, fb_fused, hs_iter, liu_shen_iter, lk_build, lk_iter, poly_expand, tent_sample,
     warp_tent,
@@ -183,6 +184,51 @@ def test_scan_resident_hs_equals_eager(name, dev):
             want = run_config(name, *p)
             assert hs_iter.hs_iterate.resident == before + 2
             assert _equal((us[k], vs[k]), want) and _equal((us2[k], vs2[k]), want)
+    finally:
+        scan.release()
+
+
+CALIBRATED = "LiuSE_PyHSchunck_Fs3_4_PyrLvls2@Bits12/Ni06"
+
+
+def test_calibrated_12bit_graph_and_scan_equal_eager(dev):
+    """The 12-bit configuration of pivbench's ``ls_hs12_2560x2160`` at its
+    size through both entries: the capture launches the base configuration's
+    kernels, K1 as two blocked solves of 75 launches and no resident one; a
+    host stack through ``scan_pipeline`` replays the graph, launching
+    nothing; every pair equals its eager run bit for bit."""
+    shape = (2160, 2560)
+    pairs = [particle_image_pair(shape=shape, seed=s, max_disp=2.5, bit_depth=12)[:2]
+             for s in (1, 2)]
+    im1s, im2s = (np.stack([p[j] for p in pairs]).astype(np.float32) for j in range(2))
+    assert im1s.max() > 255.0
+    fn, scan = compiled_pipeline(CALIBRATED), scan_pipeline(CALIBRATED)
+    hs = hs_iter.hs_iterate
+
+    def k1():
+        return hs.resident, hs.blocked, hs.blocked_launches
+
+    try:
+        first = tuple(torch.as_tensor(x, device=dev) for x in pairs[0])
+        fn.warm_up(*first)
+        before, k1_before = launches(), k1()
+        got = fn(*first)
+        assert {k for k, n in launches().items() if n > before[k]} == expected_kernels(
+            base_name(CALIBRATED))
+        assert k1() == (k1_before[0], k1_before[1] + 2, k1_before[2] + 150)
+        after = launches()
+        us, vs = scan(im1s, im2s)
+        assert launches() == after
+        for k, p in enumerate(pairs):
+            k1_before = k1()
+            want = run_config(CALIBRATED, *(torch.as_tensor(x, device=dev) for x in p))
+            assert k1() == (k1_before[0], k1_before[1] + 2, k1_before[2] + 150)
+            assert _equal((us[k], vs[k]), want)
+            if k == 0:
+                assert _equal(got, want)
+        # the calibration reached the solve: the Bits08 alphas give another flow
+        plain = run_config(base_name(CALIBRATED), *first)
+        assert not _equal(plain, got)
     finally:
         scan.release()
 

@@ -12,8 +12,10 @@ relative, and the Liu-Shen stop comes at the same iteration, also when it
 falls inside one of the kernel's launches of T steps.  The HS kernel
 is held on both of its paths: the resident one (one launch a solve, every
 shape on the H100 up to 512^2) at 0 to 600 iterations, and the blocked one
-(2048^2, and the smaller shapes forced onto it) at every niter mod T (its
-iterations per launch) and at several T; K1 and K4/K5 under every per-side
+(2048^2, the 12-bit configuration's 2560 x 2160 and 1280 x 1080 levels at
+600 iterations, and the smaller shapes forced onto it) at every niter mod T
+(its iterations per launch) and at several T, with the counters of the
+solves on each path and of the blocked launches; K1 and K4/K5 under every per-side
 ``edges`` mask and at the tiles and stripes the sharded solves give them at
 2048^2.
 The LK build equals its plain version bit for bit, with the symmetric, the
@@ -105,13 +107,48 @@ def test_hs_kernel_equals_plain(dev, shape, niter):
     tiles = hs_iter.resident_tiles(*shape, niter, hs_iter.sm_count(dev))
     assert (tiles is None) == (shape == (2048, 2048))
     before, resident = hs_iter.hs_iterate.launches, hs_iter.hs_iterate.resident
+    blocked = hs_iter.hs_iterate.blocked
     got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, 21.0, niter)
     want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, 21.0, niter)
     torch.cuda.synchronize()
     assert hs_iter.hs_iterate.launches == before + 1
     assert hs_iter.hs_iterate.resident == resident + (tiles is not None)
+    assert hs_iter.hs_iterate.blocked == blocked + (tiles is None)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# the two levels of the 12-bit 2560 x 2160 configuration (pivbench's
+# ls_hs12_2560x2160): neither fits one wave, and neither is a whole number
+# of the blocked path's 48-cell tiles across (2560, 1280) or of 64-row
+# tiles down (2160 = 33.75 x 64, 1080 = 16.875 x 64)
+HS_CELL_LEVELS = [(2160, 2560), (1080, 1280)]
+
+
+@pytest.mark.parametrize("niter", [600, 45])
+@pytest.mark.parametrize("shape", HS_CELL_LEVELS, ids=[f"{h}x{w}" for h, w in HS_CELL_LEVELS])
+def test_hs_blocked_at_the_12bit_levels_equals_plain(dev, shape, niter):
+    """The blocked path at the 12-bit configuration's two levels, at its
+    alphas, across every launch of a 600-iteration solve (75 of 8) and of
+    one whose last launch runs fewer (45 = 5 x 8 + 5), bit for bit; the
+    counters count one blocked solve and its launches."""
+    fx, fy, ft, u0, v0 = _hs_inputs(dev, shape, seed=2)
+    fx, fy, ft = (x * 16.0 for x in (fx, fy, ft))         # 12-bit gradients
+    assert hs_iter.resident_tiles(*shape, niter, hs_iter.sm_count(dev)) is None
+    alpha = 325.0 if shape == HS_CELL_LEVELS[0] else 920.0
+    counts = (hs_iter.hs_iterate.launches, hs_iter.hs_iterate.resident,
+              hs_iter.hs_iterate.blocked, hs_iter.hs_iterate.blocked_launches)
+    got = hs_iter.hs_iterate(fx, fy, ft, u0, v0, alpha, niter)
+    want = hs_iter.hs_iterate_plain(fx, fy, ft, u0, v0, alpha, niter)
+    torch.cuda.synchronize()
+    plan = hs_iter.launch_plan(niter, T)
+    assert len(plan) == -(-niter // T) and (niter != 600 or len(plan) == 75)
+    assert (hs_iter.hs_iterate.launches, hs_iter.hs_iterate.resident,
+            hs_iter.hs_iterate.blocked, hs_iter.hs_iterate.blocked_launches) == (
+        counts[0] + 1, counts[1], counts[2] + 1, counts[3] + len(plan))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w), float((g - w).abs().max())
 
 
 def _blocked_path(monkeypatch):

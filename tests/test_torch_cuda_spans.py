@@ -91,6 +91,30 @@ def test_a_replay_launches_the_eager_runs_ops_in_order(dev, name):
     pipe.release()
 
 
+def test_calibrated_12bit_eager_ops_lie_under_spans(dev):
+    """An eager run of pivbench's ``ls_hs12_2560x2160`` configuration at its
+    size: every device op is launched under a pyramid level's span, and
+    each of K1's blocked launches (75 a solve, two solves) under
+    ``ofri.iterate``."""
+    a, b, _, _ = particle_image_pair(shape=(2160, 2560), seed=4, max_disp=2.5, bit_depth=12)
+    da, db = (torch.as_tensor(x, device=dev) for x in (a, b))
+    name = "LiuSE_PyHSchunck_Fs3_4_PyrLvls2@Bits12/Ni06"
+    build_config(name).run(da, db, device=dev)            # builds the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        build_config(name).run(da, db, device=dev)
+        torch.cuda.synchronize()
+    ops, calls, spans = _events(prof)
+    levels = [(s, e) for n, s, e in spans if n.startswith("ofri.level")]
+    iterate = [(s, e) for n, s, e in spans if n == "ofri.iterate"]
+    launched = [(n, calls[c][1]) for n, c, _ in ops if c in calls]
+    assert len(launched) == len(ops) > 150
+    assert all(any(s <= t <= e for s, e in levels) for _, t in launched)
+    k1 = [t for n, t in launched if "hs_block_kernel" in n]
+    assert len(k1) == 150
+    assert all(any(s <= t <= e for s, e in iterate) for t in k1)
+
+
 def test_entry_spans_per_call(dev):
     a, b = _pair(shape=(128, 128))
     pipe = compiled_pipeline(NAMES[0])

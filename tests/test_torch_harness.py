@@ -174,6 +174,16 @@ def test_run_config_cli(tmp_path):
     assert all(np.array_equal(g, w.numpy()) for g, w in zip(got, want))
     bad = _cli(["opticalflow_ri_tpu_torch.harness.run_config", "no_such_config"], tmp_path)
     assert bad.returncode != 0
+    # a calibrated name, its default output named without the "/"
+    name = "PyHSchunck_Fs3_4@Bits12/Ni06"
+    proc = _cli(["opticalflow_ri_tpu_torch.harness.run_config", name, "--im1", pairs[0][1],
+                 "--im2", pairs[0][2], "--device", "cpu"], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    want = run_config(name, a, b, device="cpu")
+    got = _flow(str(tmp_path / "PyHSchunck_Fs3_4@Bits12_Ni06.mat"))
+    assert all(np.array_equal(g, w.numpy()) for g, w in zip(got, want))
+    bad = _cli(["opticalflow_ri_tpu_torch.harness.run_config", "HS_Fs3_4@Bits12/Ni06"], tmp_path)
+    assert bad.returncode != 0 and "a calibrated name runs one of" in bad.stderr
 
 
 def test_batch_runner_cli(tmp_path):
